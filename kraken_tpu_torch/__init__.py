@@ -1,0 +1,66 @@
+"""kraken-tpu on PyTorch and CUDA: the port of ``kraken_tpu`` to an NVIDIA
+H100.
+
+The package mirrors ``kraken_tpu``'s layout (``core``, ``ops``, ``store``,
+``origin``, ``p2p``, ``utils``) so each module's counterpart is easy to
+find, and imports nothing of it: ``kraken_tpu`` is the reference the port is
+tested against, bit for bit. Every TPU kernel on a ported path becomes a
+kernel written by hand for Hopper (``csrc/``).
+
+Ported so far: the piece-hash plane -- an origin generates a blob's
+MetaInfo (``origin.metainfogen.Generator``) and an agent verifies every
+received piece (``p2p.storage.BatchedVerifier``), both through the ``cuda``
+hasher (``ops.sha256.TorchPieceHasher``) and its SHA-256 kernel. Entry
+points run on the card unless the caller passes a CPU hasher.
+"""
+
+from kraken_tpu_torch.core import (
+    CPUPieceHasher,
+    Digest,
+    Digester,
+    DigestError,
+    InfoHash,
+    MetaInfo,
+    MetaInfoError,
+    PieceHasher,
+    get_hasher,
+)
+from kraken_tpu_torch.ops.sha256 import TorchPieceHasher
+from kraken_tpu_torch.origin.metainfogen import (
+    Generator,
+    PieceLengthConfig,
+    TorrentMetaMetadata,
+)
+from kraken_tpu_torch.p2p.storage import (
+    AgentTorrentArchive,
+    BatchedVerifier,
+    OriginTorrentArchive,
+    PieceError,
+    Torrent,
+)
+from kraken_tpu_torch.store import CAStore, PieceStatusMetadata
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AgentTorrentArchive",
+    "BatchedVerifier",
+    "CAStore",
+    "CPUPieceHasher",
+    "Digest",
+    "Digester",
+    "DigestError",
+    "Generator",
+    "InfoHash",
+    "MetaInfo",
+    "MetaInfoError",
+    "OriginTorrentArchive",
+    "PieceError",
+    "PieceHasher",
+    "PieceLengthConfig",
+    "PieceStatusMetadata",
+    "TorchPieceHasher",
+    "Torrent",
+    "TorrentMetaMetadata",
+    "get_hasher",
+]

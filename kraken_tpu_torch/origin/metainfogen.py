@@ -1,0 +1,139 @@
+"""Metainfo generation: the origin-side piece-hash hot loop, on the GPU.
+
+Choose the piece length from the blob size, hash every piece through the
+batched ``PieceHasher`` (one kernel launch per window of pieces), and
+persist the MetaInfo as a ``torrentmeta`` sidecar of the blob, so restarts
+never re-hash. The sidecar bytes are those ``kraken_tpu`` writes.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from kraken_tpu_torch.core.digest import Digest
+from kraken_tpu_torch.core.hasher import PieceHasher, get_hasher
+from kraken_tpu_torch.core.metainfo import MetaInfo
+from kraken_tpu_torch.store import CAStore, Metadata, register_metadata
+
+
+@register_metadata
+class TorrentMetaMetadata(Metadata):
+    """The blob's serialized MetaInfo, stored beside it."""
+
+    name = "torrentmeta"
+
+    def __init__(self, metainfo: MetaInfo):
+        self.metainfo = metainfo
+
+    def serialize(self) -> bytes:
+        return self.metainfo.serialize()
+
+    @classmethod
+    def deserialize(cls, raw: bytes) -> "TorrentMetaMetadata":
+        return cls(MetaInfo.deserialize(raw))
+
+
+@dataclasses.dataclass(frozen=True)
+class PieceLengthConfig:
+    """Blob size -> piece length table (powers of two). Small blobs get
+    4 MiB pieces; larger blobs scale up so the piece count stays bounded."""
+
+    # (min blob size, piece length), evaluated top-down; last match wins.
+    table: tuple[tuple[int, int], ...] = (
+        (0, 4 * 1024 * 1024),
+        (2 * 1024**3, 8 * 1024 * 1024),
+        (8 * 1024**3, 16 * 1024 * 1024),
+    )
+
+    def piece_length(self, blob_size: int) -> int:
+        chosen = self.table[0][1]
+        for min_size, piece_len in self.table:
+            if blob_size >= min_size:
+                chosen = piece_len
+        return chosen
+
+
+class Generator:
+    """Generates (and caches) MetaInfo for blobs in a CAStore.
+
+    With no ``hasher`` it takes the ``cuda`` hasher, which needs a card.
+    """
+
+    def __init__(
+        self,
+        store: CAStore,
+        hasher: PieceHasher | None = None,
+        piece_lengths: PieceLengthConfig | None = None,
+        window_bytes: int = 256 * 1024 * 1024,
+    ):
+        self.store = store
+        self.hasher = hasher or get_hasher("cuda")
+        self.piece_lengths = piece_lengths or PieceLengthConfig()
+        # Blobs are hashed through a sliding window of whole pieces, so
+        # generation memory is O(window), not O(blob). The window is the
+        # hasher's batch: one thread of the kernel per piece in it.
+        self.window_bytes = window_bytes
+
+    def get_cached(self, d: Digest) -> MetaInfo | None:
+        md = self.store.get_metadata(d, TorrentMetaMetadata)
+        return md.metainfo if md else None
+
+    def generate_sync(self, d: Digest) -> MetaInfo:
+        """Hash every piece of blob ``d`` (windowed batched dispatches) and
+        persist the MetaInfo. Idempotent. Raises KeyError if the blob is
+        absent."""
+        cached = self.get_cached(d)
+        if cached is not None:
+            return cached
+        size = self.store.cache_size(d)  # KeyError if absent
+        piece_length = self.piece_lengths.piece_length(size)
+        # Floor the window at a few pieces when a host hash pool exists, so
+        # a tiny window cannot serialize the sharded piece pass; the cap of
+        # 4 keeps window_bytes the operator's memory bound.
+        pool = self.hasher.pool
+        min_pieces = min(pool.workers, 4) if pool is not None else 1
+        window = max(
+            piece_length * min_pieces,
+            self.window_bytes // piece_length * piece_length,
+        )
+        parts = []
+        # One-window lookahead: the read of window i+1 runs in a side
+        # thread while the hasher chews window i.
+        with self.store.open_cache_file(d) as f, ThreadPoolExecutor(1) as ex:
+            data = f.read(window)
+            while True:
+                prefetch = ex.submit(f.read, window)
+                parts.append(self.hasher.hash_pieces(data, piece_length))
+                if len(data) < window:
+                    break
+                data = prefetch.result()
+                if not data:
+                    break
+        hashes = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        metainfo = MetaInfo(d, size, piece_length, hashes.tobytes())
+        self.store.set_metadata(d, TorrentMetaMetadata(metainfo))
+        return metainfo
+
+    async def generate(self, d: Digest) -> MetaInfo:
+        """Off-loop :meth:`generate_sync` (reads + hashes a whole blob)."""
+        return await asyncio.to_thread(self.generate_sync, d)
+
+    def adopt(
+        self, d: Digest, size: int, piece_length: int, piece_hashes: bytes
+    ) -> MetaInfo:
+        """Persist a MetaInfo whose piece hashes the caller computed while
+        the bytes streamed in -- the blob is never re-read. The piece length
+        must match this generator's config for ``size`` so agents and the
+        re-generate path agree bit-for-bit."""
+        if piece_length != self.piece_lengths.piece_length(size):
+            raise ValueError(
+                f"piece_length {piece_length} != configured "
+                f"{self.piece_lengths.piece_length(size)} for size {size}"
+            )
+        metainfo = MetaInfo(d, size, piece_length, piece_hashes)
+        self.store.set_metadata(d, TorrentMetaMetadata(metainfo))
+        return metainfo

@@ -1,0 +1,87 @@
+"""Typed per-file metadata persisted beside cache files.
+
+The agent's crash-resume depends on it: a restarted download reads the
+piece bitfield and only fetches missing pieces. Each type serializes to
+bytes and lives at ``<data_path>._md_<name>`` -- the same file names and
+bytes as ``kraken_tpu.store.metadata``, so either package reads the
+other's sidecars.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Type
+
+_REGISTRY: Dict[str, Type["Metadata"]] = {}
+
+
+def register_metadata(cls: Type["Metadata"]) -> Type["Metadata"]:
+    """Class decorator: register a metadata type by its ``name``."""
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def metadata_type(name: str) -> Type["Metadata"]:
+    return _REGISTRY[name]
+
+
+class Metadata:
+    """One typed metadata record attached to a stored file."""
+
+    name = "abstract"
+
+    def serialize(self) -> bytes:
+        raise NotImplementedError
+
+    @classmethod
+    def deserialize(cls, raw: bytes) -> "Metadata":
+        raise NotImplementedError
+
+
+@register_metadata
+class PieceStatusMetadata(Metadata):
+    """Bitfield of completed pieces for a partially-downloaded blob:
+    a 4-byte big-endian piece count, then piece i at bit ``i % 8`` of
+    byte ``i // 8``."""
+
+    name = "piece_status"
+
+    def __init__(self, num_pieces: int, bits: bytearray | None = None):
+        self.num_pieces = num_pieces
+        nbytes = (num_pieces + 7) // 8
+        self.bits = bytearray(nbytes) if bits is None else bytearray(bits)
+        if len(self.bits) != nbytes:
+            raise ValueError(
+                f"bitfield length {len(self.bits)} != expected {nbytes}"
+            )
+        # Stray padding bits in the last byte (corrupt/hand-built sidecar)
+        # must not count: complete() would otherwise declare a torrent done
+        # with a real piece missing.
+        if num_pieces % 8 and self.bits:
+            self.bits[-1] &= (1 << (num_pieces % 8)) - 1
+        # Cached popcount: complete() runs once per received piece.
+        self._count = sum(int(b).bit_count() for b in self.bits)
+
+    def has(self, i: int) -> bool:
+        return bool(self.bits[i // 8] >> (i % 8) & 1)
+
+    def set(self, i: int) -> None:
+        if not self.has(i):
+            self.bits[i // 8] |= 1 << (i % 8)
+            self._count += 1
+
+    def complete(self) -> bool:
+        return self._count == self.num_pieces
+
+    def count(self) -> int:
+        return self._count
+
+    def missing(self) -> list[int]:
+        return [i for i in range(self.num_pieces) if not self.has(i)]
+
+    def serialize(self) -> bytes:
+        return self.num_pieces.to_bytes(4, "big") + bytes(self.bits)
+
+    @classmethod
+    def deserialize(cls, raw: bytes) -> "PieceStatusMetadata":
+        n = int.from_bytes(raw[:4], "big")
+        return cls(n, bytearray(raw[4:]))
