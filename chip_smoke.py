@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card. It builds
-the port's SHA-256 kernel from ``kraken_tpu_torch/csrc/`` (``nvcc``, a few
-seconds), then runs five phases, each printing one JSON line; any failure
-raises and the script exits non-zero without a result:
+the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
+source, all at once, a few seconds) and the host packer
+(``kraken_tpu_torch/native/hostpack.c``), then runs seven phases, each
+printing JSON lines; any failure raises and the script exits non-zero
+without a result:
 
-1. ``build``   -- the kernel library and the compiler's register report.
-2. ``kernels`` -- the kernel against its plain PyTorch version and hashlib,
+1. ``build``   -- the kernel library, the compiler's register report, and
+   which host packer was built (``c``, or ``numpy`` without a compiler).
+2. ``kernels`` -- the SHA-256 kernel of ``csrc/sha256.cu`` against its
+   plain PyTorch version and hashlib,
    on the card: lengths 0..257 (16-byte aligned and skewed starts, so all
    three load paths run), 37 x 4 KiB uniform pieces, 300 ragged pieces of
    0-70,000 bytes, one 4 MiB + 13 piece, and the main path's row counts
@@ -31,22 +35,39 @@ raises and the script exits non-zero without a result:
    device (BASELINE.json config 3 at a tenth): the kernel timed with CUDA
    events (a warm-up, then the median of 3) against its bound, and the
    hasher end to end from host memory.
+6. ``packed``  -- the two kernels of ``csrc/sha256_packed.cu`` against
+   their plain versions and hashlib: the pack bit for bit at the full
+   window (1024 x 4 MiB), 1024 x 576 B and 2048 x 64 B; the packed hash
+   at 1024 x 16 KiB and 1024 x 576 B against the plain version, at
+   1024 x 4 MiB against hashlib. Both kernels timed at 1024 x 4 MiB, the
+   plain versions at the shape they ran, and the pack beside one PyTorch
+   expression computing the same relayout.
+7. ``ingest``  -- the origin's pipelined re-generate path,
+   ``Generator(store, pipeline=IngestPipeline(get_hasher("cuda"), cfg))``:
+   ``pack_mode: host`` with the shipped ``IngestConfig()`` on a 1 GiB blob
+   of 4 MiB pieces (BASELINE.json config 1), then ``device`` and
+   ``native`` on a 4 GiB + 12,345 byte blob with 4 GiB windows (config 3
+   cut to one 1024-piece tile): the first window takes the packed path,
+   the second is the ragged tail. Each run must give hashlib's digests,
+   leave ``ingest_fallbacks_total`` unmoved, and launch exactly the
+   kernels stated in ``INGEST_RUNS``.
 
-The launch counters are zeroed just before the origin phase and read just
-after the agent phase: both wrappers must have launched on the main path.
-Then the card's name and power limit, a ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``.
+The launch counters are zeroed just before each main path (origin +
+agent; each ingest run) and read just after it: every wrapper must have
+launched on its path. Then the card's name and power limit, a
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 
 The bound of a launch is the larger of its bytes over the card's memory
 rate (each input read once, each output written once) and its integer
 operations over the card's INT32 rate: SMs x 64 INT32 lanes x the maximum
 SM clock. SHA-256 needs ``OPS_PER_BLOCK`` integer operations per 64-byte
-block (below), so it is bound by operations.
+block (below), so it is bound by operations; the pack moves bytes.
 """
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import shutil
@@ -55,6 +76,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -71,6 +93,24 @@ INT32_LANES_PER_SM = 64
 # (Sigma1 4, Ch 1, Sigma0 4, Maj 1, adds 4) + 48 schedule steps x 10
 # (sigma0 4, sigma1 4, adds 2) + 8 feed-forward adds + 16 byte swaps.
 OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 16
+# The packed hash reads big-endian words: no byte swaps.
+OPS_PER_BLOCK_PACKED = OPS_PER_BLOCK - 16
+TAIL = 12_345
+# The ingest runs: (pack mode, blob, window bytes, the launches each wrapper
+# must make). "config 1" is the 1 GiB blob of 4 MiB pieces: 16 windows of
+# 16 pieces, one uniform launch each. "tile" is 1024 pieces of 4 MiB and a
+# 12,345 byte tail: one packed window, then the tail.
+INGEST_RUNS = (
+    ("host", "config 1", 64 * MiB,
+     {"sha256_uniform": 16, "sha256_ragged": 0,
+      "pack_tiles_device": 0, "sha256_packed_tiles": 0}),
+    ("device", "tile", 1024 * PIECE,
+     {"sha256_uniform": 0, "sha256_ragged": 1,
+      "pack_tiles_device": 1, "sha256_packed_tiles": 1}),
+    ("native", "tile", 1024 * PIECE,
+     {"sha256_uniform": 0, "sha256_ragged": 1,
+      "pack_tiles_device": 0, "sha256_packed_tiles": 1}),
+)
 
 
 def emit(obj) -> None:
@@ -117,6 +157,11 @@ class Card:
         lengths, and what bounds it."""
         ops = sum(nblocks(n) for n in lengths) * OPS_PER_BLOCK
         nbytes = sum(lengths) + len(lengths) * (8 + 8 + 32)  # rows, offsets, lengths, digests
+        return self.bound_of(ops, nbytes)
+
+    def bound_of(self, ops: float, nbytes: float) -> tuple[float, str]:
+        """Least time (ms) for ``ops`` integer operations over ``nbytes``
+        moved, and which of the two bounds it."""
         ops_ms = ops / self.int_ops_per_s * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -133,11 +178,19 @@ def main() -> int:
 
     from kraken_tpu_torch import (
         AgentTorrentArchive, BatchedVerifier, CAStore, CPUPieceHasher, Digest,
-        Generator, MetaInfo, OriginTorrentArchive, PieceError, TorchPieceHasher,
+        Digester, Generator, IngestConfig, IngestPipeline, MetaInfo,
+        OriginTorrentArchive, PieceError, PieceLengthConfig, TorchPieceHasher,
+        TorrentMetaMetadata, get_hasher, native,
     )
     from kraken_tpu_torch.ops import sha256_cuda
-    from kraken_tpu_torch.ops.sha256_cuda import sha256_ragged, sha256_uniform
-    from kraken_tpu_torch.ops.sha256_ref import sha256_rows_ref, sha256_uniform_ref
+    from kraken_tpu_torch.ops.sha256_cuda import (
+        pack_tiles_device, sha256_packed_tiles, sha256_ragged, sha256_uniform,
+    )
+    from kraken_tpu_torch.ops.sha256_ref import (
+        pack_tiles_ref, packed_nb, sha256_packed_ref, sha256_rows_ref,
+        sha256_uniform_ref,
+    )
+    from kraken_tpu_torch.utils.metrics import REGISTRY
 
     card = Card()
     dev = torch.device("cuda")
@@ -146,13 +199,17 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib = sha256_cuda.build()
+    with ThreadPoolExecutor(2) as ex:  # the kernels and the host packer at once
+        packer = ex.submit(native.packer)
+        lib = sha256_cuda.build()
+        packer = packer.result()
     ptxas = [
         ln.strip() for ln in (lib.parent / "ptxas.log").read_text().splitlines()
-        if "registers" in ln or "spill" in ln
+        if "entry function" in ln or "registers" in ln or "spill" in ln
     ]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(REPO)), "ptxas": ptxas})
+          "library": str(lib.relative_to(REPO)), "ptxas": ptxas,
+          "host_packer": packer})
 
     # -- 2. kernels --------------------------------------------------------
     def ragged_inputs(pieces, align=16, skew=0):
@@ -291,7 +348,7 @@ def main() -> int:
     main_launches = dict(sha256_cuda.LAUNCHES)
     main_secs = time.perf_counter() - main_start
     shutil.rmtree(work, ignore_errors=True)
-    if not all(main_launches.values()):
+    if not (main_launches["sha256_uniform"] and main_launches["sha256_ragged"]):
         raise AssertionError(f"main path skipped a kernel: {main_launches}")
 
     # -- 5. batch: 1024 x 4 MiB on the device --------------------------------
@@ -330,7 +387,153 @@ def main() -> int:
         cuda_ms(lambda: sha256_ragged(flat, offs, lens)) for _ in range(3)
     )
     main_bound_ms, bound_by = card.bound([PIECE] * 64)
-    del x, win, flat
+    del win, flat
+
+    # -- 6. packed: the two kernels of csrc/sha256_packed.cu ------------------
+    def word_err(a, b):
+        """max |a - b| over uint32 words (0 when equal)."""
+        if torch.equal(a, b):
+            return 0
+        return int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)).abs().max())
+
+    checks, pack_errs, packed_errs = [], [], []
+    for m, p in ((1024, 576), (2048, 64)):
+        rows = torch.from_numpy(rng.integers(0, 256, (m, p), dtype=np.uint8)).to(dev)
+        got = pack_tiles_device(rows, p // 64)
+        pack_errs.append(word_err(got, pack_tiles_ref(rows, p // 64)))
+        checks.append(f"pack {m} x {p} B vs plain")
+        if m == 1024:
+            pieces = [bytes(r) for r in rows.cpu().numpy()]
+            packed_errs.append(hold(f"packed {m} x {p} B", sha256_packed_tiles(got, p // 64),
+                                    sha256_packed_ref(got, p // 64), pieces))
+            checks.append(f"packed hash {m} x {p} B vs plain and hashlib")
+
+    rows = torch.from_numpy(rng.integers(0, 256, (1024, 16 * KiB), dtype=np.uint8)).to(dev)
+    pk16 = pack_tiles_device(rows, 16 * KiB // 64)
+    sha256_packed_tiles(pk16, 256)  # warm
+    k_words, p_words = [], []
+    packed16_ms = cuda_ms(lambda: k_words.append(sha256_packed_tiles(pk16, 256)))
+    packed_plain_ms = cuda_ms(lambda: p_words.append(sha256_packed_ref(pk16, 256)))
+    packed_errs.append(hold("packed 1024 x 16 KiB", k_words[0], p_words[0],
+                            [bytes(r) for r in rows.cpu().numpy()]))
+    checks.append("packed hash 1024 x 16 KiB vs plain and hashlib")
+    del rows, pk16, k_words, p_words
+
+    # The full window: 1024 x 4 MiB, the pieces of the batch phase.
+    nb = PIECE // 64
+    pk = pack_tiles_device(x, nb)  # warm-up, kept
+    pack_ms = statistics.median(cuda_ms(lambda: pack_tiles_device(x, nb)) for _ in range(3))
+    plain = []
+    pack_plain_ms = cuda_ms(lambda: plain.append(pack_tiles_ref(x, nb)))
+    pack_errs.append(word_err(pk, plain[0]))
+    checks.append("pack 1024 x 4 MiB vs plain")
+    del plain
+
+    def library_pack():
+        """One PyTorch expression for the relayout: a byte flip, then a
+        permute copied into a zeroed output."""
+        out = torch.zeros((1, packed_nb(nb), 16, 1024), dtype=torch.int32, device=dev)
+        out[:, :nb] = (x.view(1, 1024, nb, 16, 4).flip(-1).view(torch.int32)
+                       .view(1, 1024, nb, 16).permute(0, 2, 3, 1))
+        return out
+
+    if word_err(library_pack().view(pk.shape), pk):
+        raise AssertionError("the library expression is not the pack")
+    pack_library_ms = statistics.median(cuda_ms(library_pack) for _ in range(3))
+    words = sha256_packed_tiles(pk, nb)  # warm-up
+    packed_ms = statistics.median(cuda_ms(lambda: sha256_packed_tiles(pk, nb)) for _ in range(3))
+    if not np.array_equal(words_to_bytes(words), want):
+        raise AssertionError("packed 1024 x 4 MiB: kernel != hashlib")
+    checks.append("packed hash 1024 x 4 MiB vs hashlib")
+    if any(pack_errs) or any(packed_errs):
+        raise AssertionError(f"packed kernels disagree: {pack_errs} {packed_errs}")
+    nbp = packed_nb(nb)
+    pack_bound_ms, pack_bound_by = card.bound_of(
+        1024 * nb * 16, 1024 * PIECE + 1024 * nbp * 64  # byte swaps; read P, write NB * 64
+    )
+    packed_bound_ms, packed_bound_by = card.bound_of(
+        1024 * (nb + 1) * OPS_PER_BLOCK_PACKED, 1024 * nb * 64 + 1024 * 32
+    )
+    emit({"phase": "packed", "checks": checks, "max_abs_err": 0,
+          "pack_1024x4MiB": {"kernel_ms": pack_ms, "plain_ms": pack_plain_ms,
+                             "library_ms": pack_library_ms, "bound_ms": pack_bound_ms,
+                             "gbps": 2 * 1024 * PIECE / pack_ms / 1e6},
+          "packed_1024x4MiB": {"kernel_ms": packed_ms, "bound_ms": packed_bound_ms,
+                               "share_of_bound": packed_bound_ms / packed_ms,
+                               "gbps": 1024 * PIECE / packed_ms / 1e6},
+          "packed_1024x16KiB": {"kernel_ms": packed16_ms, "plain_ms": packed_plain_ms}})
+    del x, pk, words
+    torch.cuda.empty_cache()
+
+    # -- 7. ingest: the origin's pipelined re-generate path -------------------
+    def fallbacks():
+        return REGISTRY.counter("ingest_fallbacks_total").value(reason="failpoint")
+
+    def put(store, parts):
+        dg, uid, off = Digester(), store.create_upload(), 0
+        for part in parts:
+            store.write_upload_chunk(uid, off, part)
+            dg.update(part)
+            off += len(part)
+        d = dg.digest()
+        store.commit_upload(uid, d, precomputed=d)
+        return d
+
+    blob1 = np.random.default_rng(SEED + 1).bytes(GiB)
+    tail = rng.bytes(TAIL)
+    blobs = {  # name -> (parts, hashlib's piece digests)
+        "config 1": ([blob1], oracle.hash_pieces(blob1, PIECE)),
+        "tile": ([host, tail], np.concatenate([want, oracle.hash_pieces(tail, PIECE)])),
+    }
+    work.mkdir(exist_ok=True)
+    ingest_launches = dict.fromkeys(sha256_cuda.LAUNCHES, 0)
+    ingest_secs, root, stored = 0.0, None, None
+    for mode, blob, window, expect in INGEST_RUNS:
+        if blob != stored:  # a new blob: the last one's 4 GiB files go first
+            if root is not None:
+                shutil.rmtree(root, ignore_errors=True)
+            root, stored = tempfile.mkdtemp(dir=work), blob
+            store = CAStore(root)
+            parts, want_pieces = blobs[blob]
+            size = sum(len(p) for p in parts)
+            d = put(store, parts)
+        cfg = IngestConfig(window_bytes=window, windows_in_flight=2, pack_mode=mode)
+        pipe = IngestPipeline(get_hasher("cuda"), cfg)
+        sessions = []
+        open_session = pipe.session
+        pipe.session = lambda plen: sessions.append(open_session(plen)) or sessions[-1]
+        gen = Generator(store, piece_lengths=PieceLengthConfig(((0, PIECE),)), pipeline=pipe)
+        if gen.hasher.name != "cuda":
+            raise AssertionError(f"ingest took the {gen.hasher.name} hasher")
+        store.delete_metadata(d, TorrentMetaMetadata)
+        fb0 = fallbacks()
+        sha256_cuda.reset_launches()
+        t0 = time.perf_counter()
+        mi = gen.generate_sync(d)
+        secs = time.perf_counter() - t0
+        launches = dict(sha256_cuda.LAUNCHES)
+        ses = sessions[0]
+        if len(sessions) != 1 or mi.length != size or mi.piece_hashes != want_pieces.tobytes():
+            raise AssertionError(f"ingest {mode}: piece digests != hashlib")
+        if fallbacks() != fb0 or ses._fell_back:
+            raise AssertionError(f"ingest {mode}: the device path fell back to hashlib")
+        if launches != expect:
+            raise AssertionError(f"ingest {mode}: launches {launches} != {expect}")
+        for k in ingest_launches:
+            ingest_launches[k] += launches[k]
+        ingest_secs += secs
+        emit({"phase": "ingest", "pack_mode": mode, "blob": blob, "blob_bytes": size,
+              "pieces": mi.num_pieces, "window_bytes": ses.window_bytes,
+              "windows_in_flight": cfg.windows_in_flight, "windows": ses.windows,
+              "seconds": secs, "gbps": size / secs / 1e9,
+              "stage_seconds": ses.stage_seconds, "overlap_ratio": ses.overlap_ratio(),
+              "launches": launches, "pack_workers": cfg.pack_workers,
+              "host_packer": native.packer() if mode == "native" else None})
+        del pipe, gen, sessions, ses, open_session
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    del blobs, host, blob1
 
     print(card.name_power, flush=True)
     common = {"route": "cuda", "source": "kraken_tpu_torch/csrc/sha256.cu",
@@ -346,7 +549,22 @@ def main() -> int:
          "replaces": "kraken_tpu/ops/sha256.py:140",
          "launches": main_launches["sha256_ragged"], "ms": rag_main_ms,
          "plain_ms": rag_plain_ms, "ms_at_plain_shape": rag_ms},
-    ], "main_path_seconds": main_secs,
+        {"name": "pack_tiles_device", "route": "cuda",
+         "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
+         "replaces": "kraken_tpu/ops/sha256_pallas.py:321",
+         "launches": ingest_launches["pack_tiles_device"], "max_abs_err": 0,
+         "ms": pack_ms, "plain_ms": pack_plain_ms, "bound_ms": pack_bound_ms,
+         "bound_by": pack_bound_by, "library_ms": pack_library_ms,
+         "shape": "1024 x 4 MiB", "plain_shape": "1024 x 4 MiB"},
+        {"name": "sha256_packed_tiles", "route": "cuda",
+         "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
+         "replaces": "kraken_tpu/ops/sha256_pallas.py:251",
+         "launches": ingest_launches["sha256_packed_tiles"], "max_abs_err": 0,
+         "ms": packed_ms, "plain_ms": packed_plain_ms, "bound_ms": packed_bound_ms,
+         "bound_by": packed_bound_by, "library_ms": None,
+         "shape": "1024 x 4 MiB", "plain_shape": "1024 x 16 KiB",
+         "ms_at_plain_shape": packed16_ms},
+    ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,12 @@ kernel written by hand for Hopper (``csrc/``).
 Ported so far: the piece-hash plane -- an origin generates a blob's
 MetaInfo (``origin.metainfogen.Generator``) and an agent verifies every
 received piece (``p2p.storage.BatchedVerifier``), both through the ``cuda``
-hasher (``ops.sha256.TorchPieceHasher``) and its SHA-256 kernel. Entry
-points run on the card unless the caller passes a CPU hasher.
+hasher (``ops.sha256.TorchPieceHasher``) and its SHA-256 kernel -- and the
+pipelined ingest plane (``core.ingest.IngestPipeline``, which the
+``Generator`` takes as ``pipeline=``): staging windows from a
+``utils.bufpool.BufferPool``, the host packer (``native``), and the packed
+path's two kernels (``csrc/sha256_packed.cu``). Entry points run on the
+card unless the caller passes a CPU hasher.
 """
 
 from kraken_tpu_torch.core import (
@@ -25,6 +29,7 @@ from kraken_tpu_torch.core import (
     PieceHasher,
     get_hasher,
 )
+from kraken_tpu_torch.core.ingest import IngestConfig, IngestPipeline
 from kraken_tpu_torch.ops.sha256 import TorchPieceHasher
 from kraken_tpu_torch.origin.metainfogen import (
     Generator,
@@ -39,12 +44,14 @@ from kraken_tpu_torch.p2p.storage import (
     Torrent,
 )
 from kraken_tpu_torch.store import CAStore, PieceStatusMetadata
+from kraken_tpu_torch.utils.bufpool import BufferPool
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AgentTorrentArchive",
     "BatchedVerifier",
+    "BufferPool",
     "CAStore",
     "CPUPieceHasher",
     "Digest",
@@ -52,6 +59,8 @@ __all__ = [
     "DigestError",
     "Generator",
     "InfoHash",
+    "IngestConfig",
+    "IngestPipeline",
     "MetaInfo",
     "MetaInfoError",
     "OriginTorrentArchive",

@@ -1,6 +1,6 @@
-"""Wrappers of the hand-written SHA-256 kernel (``csrc/sha256.cu``).
+"""Wrappers of the hand-written SHA-256 kernels (``csrc/``).
 
-Two wrappers launch the one ``__global__`` kernel, ``sha256_rows``:
+Two wrappers launch the kernel of ``csrc/sha256.cu``, ``sha256_rows``:
 
 - :func:`sha256_uniform` -- M equal-length pieces ``[M, P]`` uint8, the
   counterpart of ``kraken_tpu/ops/sha256_pallas.py`` ``sha256_tiles`` (the
@@ -10,14 +10,25 @@ Two wrappers launch the one ``__global__`` kernel, ``sha256_rows``:
   offsets and lengths, the counterpart of ``kraken_tpu/ops/sha256.py``
   ``_sha256_ragged`` (the agent's verify). The host does no SHA padding.
 
-What bounds the kernel, and what its design does about it, is noted at the
-top of ``csrc/sha256.cu``.
+Two launch the kernels of ``csrc/sha256_packed.cu``, the packed path of the
+ingest plane (``core/ingest.py``):
+
+- :func:`pack_tiles_device` -- natural ``[M, P]`` uint8 pieces to the
+  packed word-major ``[T, NB, 16, 8, 128]`` layout, the counterpart of
+  ``kraken_tpu/ops/sha256_pallas.py`` ``pack_tiles_device``;
+- :func:`sha256_packed_tiles` -- SHA-256 of the pieces of packed tiles,
+  the counterpart of ``sha256_pallas.py`` ``sha256_packed_tiles``.
+
+:func:`hash_pieces_device_packed` chains the two for any row count.
+What bounds each kernel, and what its design does about it, is noted at
+the top of its source.
 
 A tensor on the CPU goes through the plain PyTorch version
 (:mod:`kraken_tpu_torch.ops.sha256_ref`); a CUDA tensor
-launches the kernel or raises. The kernel is built with ``nvcc`` at first
-use, from the sources in this package only, into ``BUILD_DIR/<hash of the
-sources and flags>/`` and loaded with ``ctypes``.
+launches the kernel or raises. The kernels are built at first use, from
+the sources in this package only -- one ``nvcc`` per source, all started
+together, then one link -- into ``BUILD_DIR/<hash of the sources and
+flags>/`` and loaded with ``ctypes``.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernel.
@@ -36,20 +47,29 @@ from pathlib import Path
 import torch
 
 from kraken_tpu_torch.ops.sha256_ref import (
+    N_TILE,
+    pack_tiles_ref,
+    packed_nb,
+    sha256_packed_ref,
     sha256_rows_ref,
     sha256_uniform_ref,
     uniform_rows,
 )
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "sha256.cu",)
+SOURCES = (_PKG / "csrc" / "sha256.cu", _PKG / "csrc" / "sha256_packed.cu")
+HEADERS = (_PKG / "csrc" / "sha256_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
-LAUNCHES = {"sha256_uniform": 0, "sha256_ragged": 0}
+LAUNCHES = {
+    "sha256_uniform": 0, "sha256_ragged": 0,
+    "pack_tiles_device": 0, "sha256_packed_tiles": 0,
+}
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
@@ -69,29 +89,47 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the built kernel library lives: keyed on the sources and the
     flags, so an edit to either builds anew."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / "libkt_sha256.so"
 
 
 def build() -> Path:
     """Compile the kernel library if it is not built yet; returns its path.
-    The compiler's resource report (``-Xptxas -v``) lands beside it as
+    Each source compiles in its own ``nvcc``, all at once; the compiler's
+    resource report (``-Xptxas -v``) lands beside the library as
     ``ptxas.log``."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    r = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True, text=True,
-    )
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    (out.parent / "ptxas.log").write_text(r.stderr)
-    os.replace(tmp, out)
+    tag = f"tmp{os.getpid()}.{threading.get_ident()}"
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    try:
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[1] for p in procs]
+        for src, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc {src.name} failed ({p.returncode}):\n{log}")
+        r = subprocess.run(
+            [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
+        (out.parent / "ptxas.log").write_text("".join(logs))
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 
@@ -105,6 +143,12 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ]
             lib.sha256_rows_launch.restype = ctypes.c_int
+            for fn in (lib.sha256_packed_launch, lib.pack_tiles_launch):
+                fn.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                ]
+                fn.restype = ctypes.c_int
             lib.sha256_error_string.argtypes = [ctypes.c_int]
             lib.sha256_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -116,26 +160,32 @@ def _check_device(t: torch.Tensor) -> None:
         raise ValueError(f"sha256 takes cpu or cuda tensors, got {t.device}")
 
 
+def _run(name: str, entry: str, device: torch.device, *args) -> None:
+    """Launch the C entry point ``entry(*args, stream)`` on ``device``'s
+    current stream, raise if the launch was refused, and count it under
+    ``name``."""
+    lib = _load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{entry} failed: {lib.sha256_error_string(rc).decode()}"
+        )
+    with _lock:
+        LAUNCHES[name] += 1
+
+
 def _launch(
     name: str, flat: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
     n = lengths.numel()
     out = torch.empty((n, 8), dtype=torch.int32, device=flat.device)
-    if n == 0:
-        return out
-    lib = _load()
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sha256_rows_launch(
-            flat.data_ptr(), offsets.data_ptr(), lengths.data_ptr(), n,
-            out.data_ptr(), stream,
+    if n:
+        _run(
+            name, "sha256_rows_launch", flat.device, flat.data_ptr(),
+            offsets.data_ptr(), lengths.data_ptr(), n, out.data_ptr(),
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"sha256_rows launch failed: {lib.sha256_error_string(rc).decode()}"
-        )
-    with _lock:
-        LAUNCHES[name] += 1
     return out
 
 
@@ -178,3 +228,74 @@ def sha256_uniform(rows: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return sha256_uniform_ref(rows)
     return _launch("sha256_uniform", *uniform_rows(rows))
+
+
+def pack_tiles_device(rows: torch.Tensor, unpadded_blocks: int) -> torch.Tensor:
+    """The relayout of the packed path: natural [M, P] uint8 pieces
+    (contiguous, M % 1024 == 0, P = ``unpadded_blocks`` * 64) -> the packed
+    [T, NB, 16, 8, 128] int32 big-endian words, NB =
+    ``packed_nb(unpadded_blocks)``, blocks past the piece's own zero."""
+    _check_device(rows)
+    if rows.dim() != 2 or rows.dtype != torch.uint8 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous 2-D uint8 tensor")
+    m, p = rows.shape
+    if m % N_TILE or unpadded_blocks < 1 or p != unpadded_blocks * 64:
+        raise ValueError(
+            f"pack needs M % {N_TILE} == 0 and P == 64 * unpadded_blocks: "
+            f"got [{m}, {p}], unpadded_blocks {unpadded_blocks}"
+        )
+    if rows.device.type == "cpu":
+        return pack_tiles_ref(rows, unpadded_blocks)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start 16-byte aligned")
+    nbp = packed_nb(unpadded_blocks)
+    out = torch.empty(
+        (m // N_TILE, nbp, 16, 8, 128), dtype=torch.int32, device=rows.device
+    )
+    if m:
+        _run(
+            "pack_tiles_device", "pack_tiles_launch", rows.device,
+            rows.data_ptr(), m, p, nbp, out.data_ptr(),
+        )
+    return out
+
+
+def sha256_packed_tiles(packed: torch.Tensor, unpadded_blocks: int) -> torch.Tensor:
+    """SHA-256 of the ``T * 1024`` pieces in ``packed`` ([T, NB, 16, 8, 128]
+    int32 big-endian words, contiguous), each ``unpadded_blocks`` 64-byte
+    blocks long (NB >= unpadded_blocks; later blocks are never read).
+    Returns [T * 1024, 8] int32 digest words in piece order."""
+    _check_device(packed)
+    if (
+        packed.dim() != 5 or tuple(packed.shape[2:]) != (16, 8, 128)
+        or packed.dtype != torch.int32 or not packed.is_contiguous()
+    ):
+        raise ValueError("packed must be a contiguous [T, NB, 16, 8, 128] int32 tensor")
+    t, nbp = packed.shape[:2]
+    if not 1 <= unpadded_blocks <= nbp:
+        raise ValueError(f"unpadded_blocks {unpadded_blocks} outside 1..{nbp}")
+    if packed.device.type == "cpu":
+        return sha256_packed_ref(packed, unpadded_blocks)
+    n = t * N_TILE
+    out = torch.empty((n, 8), dtype=torch.int32, device=packed.device)
+    if n:
+        _run(
+            "sha256_packed_tiles", "sha256_packed_launch", packed.device,
+            packed.data_ptr(), n, nbp, unpadded_blocks, out.data_ptr(),
+        )
+    return out
+
+
+def hash_pieces_device_packed(rows: torch.Tensor, piece_length: int) -> torch.Tensor:
+    """The ``pack: device`` hash of [M, piece_length] uint8 pieces, any M:
+    rows are padded with zero pieces up to a whole tile, packed on the
+    device and hashed; returns the [M, 8] int32 digest words of the real
+    rows."""
+    if piece_length <= 0 or piece_length % 64:
+        raise ValueError(f"piece_length must be a positive multiple of 64: {piece_length}")
+    m = rows.shape[0]
+    pad = (-m) % N_TILE
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
+    nb = piece_length // 64
+    return sha256_packed_tiles(pack_tiles_device(rows, nb), nb)[:m]

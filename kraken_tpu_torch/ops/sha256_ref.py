@@ -1,9 +1,12 @@
-"""The plain PyTorch SHA-256 -- the reference the CUDA kernel is held to.
+"""The plain PyTorch SHA-256 -- the reference the CUDA kernels are held to.
 
 Computes what ``csrc/sha256.cu`` computes, ``sha256_rows(flat, offsets,
-lengths) -> [N, 8]`` digest words, with tensor ops only, on any device.
-The CPU path of the wrappers in :mod:`kraken_tpu_torch.ops.sha256_cuda`
-runs it; on the card it exists to be compared with the kernel.
+lengths) -> [N, 8]`` digest words, and what ``csrc/sha256_packed.cu``
+computes (the relayout into the packed word-major layout,
+:func:`pack_tiles_ref`, and the hash of packed words,
+:func:`sha256_packed_ref`), with tensor ops only, on any device. The CPU
+path of the wrappers in :mod:`kraken_tpu_torch.ops.sha256_cuda` runs it;
+on the card it exists to be compared with the kernels.
 
 Words are carried in ``int64`` masked to 32 bits: PyTorch's ``uint32`` has
 no shifts or additions on the CPU. A rotation folds the word into both
@@ -139,7 +142,12 @@ def sha256_rows_ref(
         state[:m] = torch.stack(st, 1)
     out = torch.empty_like(state)
     out[order] = state
-    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+    return _to_int32(out)
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) -> int32 of the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def uniform_rows(rows: torch.Tensor):
@@ -155,3 +163,71 @@ def sha256_uniform_ref(rows: torch.Tensor) -> torch.Tensor:
     """SHA-256 of each row of ``rows`` ([M, P] uint8, contiguous): the
     uniform case of :func:`sha256_rows_ref`. Returns [M, 8] int32."""
     return sha256_rows_ref(*uniform_rows(rows))
+
+
+# -- the packed layout (csrc/sha256_packed.cu) ---------------------------------
+#
+# ``[T, NB, 16, 8, 128]`` words, the layout of kraken_tpu's packed Pallas
+# kernel and of both host packers (``[T, NB, 16, 1024]`` is the same
+# memory): word j of block kb of piece ``t * 1024 + lane`` sits at
+# ``[t, kb, j, lane // 128, lane % 128]``, big-endian, so no byte swap is
+# left for the hash. NB is the block count rounded up to ``_KB``; blocks
+# past the piece's own are zero and never hashed.
+
+N_TILE = 1024  # pieces per packed tile
+_KB = 8  # the packed block axis is a multiple of this
+
+
+def packed_nb(unpadded_blocks: int) -> int:
+    """Block-axis extent of the packed layout for a chain of
+    ``unpadded_blocks`` 64-byte blocks."""
+    return (unpadded_blocks + _KB - 1) // _KB * _KB
+
+
+def pack_tiles_ref(rows: torch.Tensor, unpadded_blocks: int) -> torch.Tensor:
+    """The relayout, plainly: [M, P] uint8 pieces (M % 1024 == 0, P =
+    ``unpadded_blocks`` * 64, contiguous) -> [T, NB, 16, 8, 128] int32
+    big-endian words, NB = ``packed_nb(unpadded_blocks)``, trailing blocks
+    zero. Vectorized, a bounded slab of blocks per pass."""
+    m, p = rows.shape
+    nb, t = unpadded_blocks, m // N_TILE
+    nbp = packed_nb(nb)
+    out = torch.zeros((t, nbp, 16, N_TILE), dtype=torch.int32, device=rows.device)
+    src = rows.view(t, N_TILE, nb, 16, 4)
+    step = max(1, (1 << 26) // max(1, m * 64))  # ~64 MiB of bytes a pass
+    for b0 in range(0, nb, step):
+        b = src[:, :, b0 : b0 + step].long()  # [t, 1024, c, 16, 4]
+        w = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+        out[:, b0 : b0 + b.shape[2]] = _to_int32(w).permute(0, 2, 3, 1)
+    return out.view(t, nbp, 16, 8, 128)
+
+
+def _pad_block(nbytes: int, device) -> torch.Tensor:
+    """The SHA-256 padding block of a message of ``nbytes`` bytes, a
+    multiple of 64: 0x80, zeros, the 64-bit bit length. [1, 1, 16]."""
+    bits = nbytes * 8
+    w = [0x80000000] + [0] * 13 + [bits >> 32, bits & MASK]
+    return torch.tensor(w, dtype=torch.int64, device=device).view(1, 1, 16)
+
+
+def sha256_packed_ref(packed: torch.Tensor, unpadded_blocks: int) -> torch.Tensor:
+    """The packed hash, plainly: SHA-256 of the ``T * 1024`` pieces of
+    ``unpadded_blocks`` blocks each in ``packed`` ([T, NB, 16, 8, 128]
+    int32 big-endian words, NB >= unpadded_blocks), the padding block
+    folded after the last data block. Returns [T * 1024, 8] int32 digest
+    words in piece order."""
+    t, nbp = packed.shape[:2]
+    nb, n = unpadded_blocks, t * N_TILE
+    words = packed.reshape(t, nbp, 16, N_TILE)
+    st = list(
+        torch.as_tensor(_H0.astype(np.int64), device=packed.device)
+        .repeat(n, 1).unbind(1)
+    )
+    for b0 in range(0, nb, _CHUNK):
+        c = min(_CHUNK, nb - b0)
+        w = words[:, b0 : b0 + c].long() & MASK  # [t, c, 16, 1024]
+        kw = _schedule(w.permute(0, 3, 1, 2).reshape(n, c, 16))
+        for j in range(c):
+            st = compress(st, kw[j])
+    st = compress(st, _schedule(_pad_block(nb * 64, packed.device))[0])
+    return _to_int32(torch.stack(st, 1))

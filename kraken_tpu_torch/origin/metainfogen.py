@@ -1,9 +1,10 @@
 """Metainfo generation: the origin-side piece-hash hot loop, on the GPU.
 
 Choose the piece length from the blob size, hash every piece through the
-batched ``PieceHasher`` (one kernel launch per window of pieces), and
-persist the MetaInfo as a ``torrentmeta`` sidecar of the blob, so restarts
-never re-hash. The sidecar bytes are those ``kraken_tpu`` writes.
+batched ``PieceHasher`` (one kernel launch per window of pieces) or the
+pipelined ingest plane (``core/ingest.py``), and persist the MetaInfo as a
+``torrentmeta`` sidecar of the blob, so restarts never re-hash. The
+sidecar bytes are those ``kraken_tpu`` writes.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ class PieceLengthConfig:
 class Generator:
     """Generates (and caches) MetaInfo for blobs in a CAStore.
 
-    With no ``hasher`` it takes the ``cuda`` hasher, which needs a card.
+    With no ``hasher`` it takes the pipeline's hasher, or else the ``cuda``
+    hasher, which needs a card.
     """
 
     def __init__(
@@ -69,14 +71,22 @@ class Generator:
         hasher: PieceHasher | None = None,
         piece_lengths: PieceLengthConfig | None = None,
         window_bytes: int = 256 * 1024 * 1024,
+        pipeline=None,
     ):
         self.store = store
-        self.hasher = hasher or get_hasher("cuda")
+        self.hasher = hasher or (
+            pipeline.hasher if pipeline is not None else get_hasher("cuda")
+        )
         self.piece_lengths = piece_lengths or PieceLengthConfig()
         # Blobs are hashed through a sliding window of whole pieces, so
         # generation memory is O(window), not O(blob). The window is the
         # hasher's batch: one thread of the kernel per piece in it.
         self.window_bytes = window_bytes
+        # core.ingest.IngestPipeline, when the origin runs the pipelined
+        # ingest plane: generate streams the blob's windows through it
+        # (read overlapping pack/transfer/hash) instead of the serial
+        # read-then-hash loop. None = serial path.
+        self.pipeline = pipeline
 
     def get_cached(self, d: Digest) -> MetaInfo | None:
         md = self.store.get_metadata(d, TorrentMetaMetadata)
@@ -91,6 +101,11 @@ class Generator:
             return cached
         size = self.store.cache_size(d)  # KeyError if absent
         piece_length = self.piece_lengths.piece_length(size)
+        if self.pipeline is not None:
+            hashes = self._generate_pipelined(d, piece_length)
+            metainfo = MetaInfo(d, size, piece_length, hashes.tobytes())
+            self.store.set_metadata(d, TorrentMetaMetadata(metainfo))
+            return metainfo
         # Floor the window at a few pieces when a host hash pool exists, so
         # a tiny window cannot serialize the sharded piece pass; the cap of
         # 4 keeps window_bytes the operator's memory bound.
@@ -117,6 +132,26 @@ class Generator:
         metainfo = MetaInfo(d, size, piece_length, hashes.tobytes())
         self.store.set_metadata(d, TorrentMetaMetadata(metainfo))
         return metainfo
+
+    def _generate_pipelined(self, d: Digest, piece_length: int) -> np.ndarray:
+        """Stream the blob through the ingest pipeline: ``readinto`` lands
+        each window's bytes directly in the staging buffer the hasher
+        consumes, and the pipeline overlaps window k+1's read with window
+        k's pack/transfer/hash. Digests are bit-identical to the serial
+        loop -- same piece boundaries."""
+        ses = self.pipeline.session(piece_length)
+        try:
+            with self.store.open_cache_file(d) as f:
+                while True:
+                    buf = ses.begin_window()
+                    n = f.readinto(buf)
+                    ses.submit(n or 0)
+                    if not n or n < len(buf):
+                        break
+            return ses.finish()
+        except BaseException:
+            ses.abort()
+            raise
 
     async def generate(self, d: Digest) -> MetaInfo:
         """Off-loop :meth:`generate_sync` (reads + hashes a whole blob)."""

@@ -48,6 +48,9 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
 _SLICE = r"""
 import asyncio, json, sys, tempfile
 import kraken_tpu_torch as kt
+import kraken_tpu_torch.core.ingest
+import kraken_tpu_torch.native
+import kraken_tpu_torch.utils.failpoints
 
 blob = bytes(range(256)) * 41
 d = kt.Digest.from_bytes(blob)
@@ -69,8 +72,18 @@ with tempfile.TemporaryDirectory() as root:
 
     asyncio.run(pull())
     assert a.read_cache_file(d) == blob
+    # The pipelined ingest plane: one packed window (a 1024-piece tile),
+    # host-packed, then a ragged tail.
+    blob2 = bytes(range(256)) * (4 * 1024) + b"tail"
+    d2 = kt.Digest.from_bytes(blob2)
+    uid = o.create_upload()
+    o.write_upload_chunk(uid, 0, blob2)
+    o.commit_upload(uid, d2)
+    pipe = kt.IngestPipeline(h, kt.IngestConfig(window_bytes=1 << 20, pack_mode="native"))
+    mi2 = kt.Generator(o, piece_lengths=kt.PieceLengthConfig(((0, 1024),)), pipeline=pipe).generate_sync(d2)
+    assert mi2.piece_hashes == kt.CPUPieceHasher().hash_pieces(blob2, 1024).tobytes()
 mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kraken_tpu")]
-print(json.dumps({"pieces": mi.num_pieces, "forbidden": mods}))
+print(json.dumps({"pieces": mi.num_pieces, "ingest_pieces": mi2.num_pieces, "forbidden": mods}))
 """
 
 
@@ -84,7 +97,7 @@ def test_slice_runs_without_jax_or_kraken_tpu_loaded():
     )
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out == {"pieces": 6, "forbidden": []}
+    assert out == {"pieces": 6, "ingest_pieces": 1025, "forbidden": []}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):

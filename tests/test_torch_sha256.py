@@ -222,7 +222,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     got = words.numpy().view(np.uint32).astype(">u4").view(np.uint8).reshape(3, 32)
     for i in range(3):
         assert bytes(got[i]) == hashlib.sha256(rows[i * 192 : (i + 1) * 192].numpy().tobytes()).digest()
-    assert sha256_cuda.LAUNCHES == {"sha256_uniform": 0, "sha256_ragged": 0}
+    assert sha256_cuda.LAUNCHES == {
+        "sha256_uniform": 0, "sha256_ragged": 0,
+        "pack_tiles_device": 0, "sha256_packed_tiles": 0,
+    }
 
 
 def test_metrics_record_split():
