@@ -69,11 +69,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from chip_smoke import Card, cuda_ms
-    from kraken_tpu_torch.ops import sha256_cuda
+    from kraken_tpu_torch.ops import cuda_lib, sha256_cuda
 
     card = Card()
     print(card.name_power, flush=True)
-    lib = sha256_cuda.build()
+    lib = cuda_lib.build()
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
         [cuobjdump, "-sass", str(lib)], capture_output=True, text=True,

@@ -6,12 +6,13 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs seven phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs nine phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
-1. ``build``   -- the kernel library, the compiler's register report, and
-   which host packer was built (``c``, or ``numpy`` without a compiler).
+1. ``build``   -- the kernel library, the compiler's register report, the
+   gear kernel's SASS instruction count, and which host packer was built
+   (``c``, or ``numpy`` without a compiler).
 2. ``kernels`` -- the SHA-256 kernel of ``csrc/sha256.cu`` against its
    plain PyTorch version and hashlib,
    on the card: lengths 0..257 (16-byte aligned and skewed starts, so all
@@ -51,17 +52,42 @@ without a result:
    the second is the ragged tail. Each run must give hashlib's digests,
    leave ``ingest_fallbacks_total`` unmoved, and launch exactly the
    kernels stated in ``INGEST_RUNS``.
+8. ``cdc``     -- the gear kernel of ``csrc/gear.cu`` against its plain
+   PyTorch version on the card, mask for mask: one 64 MiB window with a
+   ragged tail from the blob's offset 0, one with 31 bytes of history;
+   a blob of two windows and a ragged tail whose first 31 bytes hash onto
+   the loose mask with zero history (the candidate lists of the windowed
+   kernel route against one whole-blob plain pass); and a 1 GiB blob,
+   whose cuts through the kernel route must equal the sequential C
+   chunker's (``native.cdc_chunk_native``). The kernel is timed at the
+   main path's window beside the plain pass and one PyTorch expression
+   (the doubling in int32 with wraparound).
+9. ``dedup``   -- the dedup plane's main path at BASELINE.json config 4's
+   chunking (default ``CDCParams``, 64 KiB average chunks): a fresh
+   ``CAStore`` and ``DedupIndex(store)``, which takes the card and the
+   ``cuda`` hasher. A is 1 GiB, B is A with 4 KiB inserted at 256 MiB and
+   1 MiB rewritten at 768 MiB, C is 256 MiB unrelated. The router
+   calibrates on A (its measured rates and decision are printed), then is
+   set to ``device`` so the kernel chunks every blob, and A, B and C are
+   indexed. Each blob's spans must equal the C chunker's and each
+   fingerprint hashlib's; ``similar(B)`` must rank A first at >= 0.9 and
+   ``similar(C)`` return nothing above 0.1; the dedup ratio must reach
+   0.45 once B is in (A and B alone; C, unrelated, then lowers it); the
+   gear kernel must launch once per 64 MiB window and the ragged SHA-256
+   at least once. Each blob's wall splits into chunk, hash and sketch
+   seconds. The ragged SHA-256 is timed at the chunk shape.
 
 The launch counters are zeroed just before each main path (origin +
-agent; each ingest run) and read just after it: every wrapper must have
-launched on its path. Then the card's name and power limit, a
+agent; each ingest run; the dedup indexing) and read just after it: every
+wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 
 The bound of a launch is the larger of its bytes over the card's memory
 rate (each input read once, each output written once) and its integer
 operations over the card's INT32 rate: SMs x 64 INT32 lanes x the maximum
 SM clock. SHA-256 needs ``OPS_PER_BLOCK`` integer operations per 64-byte
-block (below), so it is bound by operations; the pack moves bytes.
+block (below), so it is bound by operations; the pack moves bytes; the
+gear pass needs ``GEAR_OPS_PER_BYTE`` a byte against 2 bytes moved.
 """
 
 from __future__ import annotations
@@ -70,6 +96,7 @@ import asyncio
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -96,6 +123,10 @@ OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 16
 # The packed hash reads big-endian words: no byte swaps.
 OPS_PER_BLOCK_PACKED = OPS_PER_BLOCK - 16
 TAIL = 12_345
+# Integer operations of the gear pass a byte, in the rolling form: the gear
+# map 6 (multiply-add, shift, xor, multiply, shift, xor), one shift-add, and
+# two mask tests of 2 (and, compare).
+GEAR_OPS_PER_BYTE = 6 + 1 + 2 * 2
 # The ingest runs: (pack mode, blob, window bytes, the launches each wrapper
 # must make). "config 1" is the 1 GiB blob of 4 MiB pieces: 16 windows of
 # 16 pieces, one uniform launch each. "tile" is 1024 pieces of 4 MiB and a
@@ -123,6 +154,18 @@ def nblocks(length: int) -> int:
 
 def words_to_bytes(words: torch.Tensor) -> np.ndarray:
     return words.cpu().numpy().view(np.uint32).astype(">u4").view(np.uint8).reshape(-1, 32)
+
+
+def sass_instructions(sass: str, kernel: str) -> int:
+    """Instructions of one kernel's function in a ``cuobjdump -sass``
+    listing."""
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            count += 1
+    return count
 
 
 def cuda_ms(fn) -> float:
@@ -182,7 +225,10 @@ def main() -> int:
         OriginTorrentArchive, PieceError, PieceLengthConfig, TorchPieceHasher,
         TorrentMetaMetadata, get_hasher, native,
     )
-    from kraken_tpu_torch.ops import sha256_cuda
+    from kraken_tpu_torch import CDCParams, DedupIndex, chunk
+    from kraken_tpu_torch.ops import cdc_cuda, cuda_lib, sha256_cuda
+    from kraken_tpu_torch.ops.cdc_cuda import LEAD, candidate_indices, gear_mask, padded
+    from kraken_tpu_torch.ops.cdc_ref import gear_candidates_ref, gear_mask_ref
     from kraken_tpu_torch.ops.sha256_cuda import (
         pack_tiles_device, sha256_packed_tiles, sha256_ragged, sha256_uniform,
     )
@@ -201,14 +247,24 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:  # the kernels and the host packer at once
         packer = ex.submit(native.packer)
-        lib = sha256_cuda.build()
+        lib = cuda_lib.build()
         packer = packer.result()
+    build_secs = time.perf_counter() - t0
     ptxas = [
         ln.strip() for ln in (lib.parent / "ptxas.log").read_text().splitlines()
         if "entry function" in ln or "registers" in ln or "spill" in ln
     ]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    # The gear kernel is unrolled and loop-free but for its 5-lap load
+    # loop: per position, its instructions times a block's 256 threads over
+    # its 4,096 positions (the load loop counted once: a lower bound).
+    gear_sass = sass_instructions(sass, "gear_mask_kernel")
+    emit({"phase": "build", "seconds": build_secs,
           "library": str(lib.relative_to(REPO)), "ptxas": ptxas,
+          "gear_sass_instructions": gear_sass,
+          "gear_sass_per_byte": gear_sass * 256 / cdc_cuda.TILE,
           "host_packer": packer})
 
     # -- 2. kernels --------------------------------------------------------
@@ -535,6 +591,210 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     del blobs, host, blob1
 
+    # -- 8. cdc: the gear kernel against its plain version --------------------
+    params = CDCParams()
+    ms_, ml_ = params.mask_strict, params.mask_loose
+    win = cdc_cuda.WINDOW_BYTES
+    checks, gear_errs = [], []
+
+    def mask_err(got, want):
+        """max |kernel - plain| over the mask bytes (0 when equal)."""
+        return 0 if torch.equal(got, want) else int((got.int() - want.int()).abs().max())
+
+    for n, hist in ((win - TAIL, 0), (win, 31)):
+        buf = torch.from_numpy(rng.integers(0, 256, LEAD + padded(n), dtype=np.uint8)).to(dev)
+        gear_errs.append(mask_err(gear_mask(buf, n, hist, ms_, ml_),
+                                  gear_mask_ref(buf, n, hist, ms_, ml_, LEAD)))
+        checks.append(f"one window of {n} B, {hist} B of history, vs plain")
+    # The main path's launch: a whole 64 MiB window after the first.
+    gear_mask(buf, win, 31, ms_, ml_)  # warm
+    gear_ms = statistics.median(cuda_ms(lambda: gear_mask(buf, win, 31, ms_, ml_))
+                                for _ in range(3))
+    gear_plain_ms = cuda_ms(lambda: gear_mask_ref(buf, win, 31, ms_, ml_, LEAD))
+
+    def i32(v):
+        return v - (1 << 32) if v >= 1 << 31 else v
+
+    def library_gear():
+        """One PyTorch expression for the window's masks: the gear map and
+        the log-doubling in int32 with wraparound, then both mask tests."""
+        x = buf[LEAD - 31 : LEAD + win].to(torch.int32)
+        x = (x + 1) * i32(0x9E3779B1)
+        x = x ^ ((x >> 15) & 0x1FFFF)
+        x = x * i32(0x85EBCA77)
+        h = x ^ ((x >> 13) & 0x7FFFF)
+        step = 1
+        while step < 32:
+            h = h + (torch.cat([h.new_zeros(step), h[:-step]]) << step)
+            step *= 2
+        h = h[31:]
+        return ((h & i32(ms_)) == 0).to(torch.uint8) | (((h & i32(ml_)) == 0).to(torch.uint8) << 1)
+
+    if mask_err(library_gear(), gear_mask(buf, win, 31, ms_, ml_)):
+        raise AssertionError("the library expression is not the gear pass")
+    gear_library_ms = statistics.median(cuda_ms(library_gear) for _ in range(3))
+    gear_bound_ms, gear_bound_by = card.bound_of(win * GEAR_OPS_PER_BYTE, 2 * win + 31)
+    del buf
+
+    # Two windows and a ragged tail, planted: the first 31 bytes hash onto
+    # the loose mask with zero history (the seeds are searched on the card
+    # with the plain pass), where a lead taken as zero bytes would diverge.
+    n3 = 2 * win + TAIL
+    arr3 = rng.integers(0, 256, n3, dtype=np.uint8)
+    for seed in range(10_000):
+        prefix = np.random.default_rng(seed).integers(0, 256, 31, dtype=np.uint8)
+        if bool(gear_candidates_ref(torch.from_numpy(prefix).to(dev), ms_, ml_)[1].any()):
+            arr3[:31] = prefix
+            break
+    else:
+        raise AssertionError("cdc: no early-candidate prefix found")
+    before = cdc_cuda.LAUNCHES["gear_candidates"]
+    got3 = candidate_indices(arr3, n3, params, dev)
+    if cdc_cuda.LAUNCHES["gear_candidates"] - before != 3:
+        raise AssertionError("cdc: the planted blob did not take 3 launches")
+    want3 = [torch.nonzero(m).squeeze(1).cpu().numpy()
+             for m in gear_candidates_ref(torch.from_numpy(arr3).to(dev), ms_, ml_)]
+    if not all(np.array_equal(g, w) for g, w in zip(got3, want3)) or not got3[1][0] < 31:
+        raise AssertionError("cdc: windowed kernel candidates != whole-blob plain pass")
+    checks.append(f"planted blob of {n3} B (3 windows) vs one whole-blob plain pass, "
+                  f"seed {seed}, first loose candidate at {int(got3[1][0])}")
+    del arr3, want3
+
+    # 1 GiB: the kernel route's cuts against the sequential C chunker.
+    blob_a = np.random.default_rng(SEED + 10).bytes(GiB)
+    native_cuts = {}
+
+    def c_cuts(name, data):
+        t0 = time.perf_counter()
+        cuts = native.cdc_chunk_native(np.frombuffer(data, dtype=np.uint8), params.min_size,
+                                       params.avg_size, params.max_size, ms_, ml_)
+        native_cuts[name] = (cuts.tolist(), time.perf_counter() - t0)
+        return native_cuts[name][0]
+
+    t0 = time.perf_counter()
+    cuts_a = chunk(blob_a, params)
+    chunk_secs = time.perf_counter() - t0
+    if cuts_a != c_cuts("A", blob_a):
+        raise AssertionError("cdc: 1 GiB kernel-route cuts != the C chunker's")
+    checks.append(f"1 GiB: {len(cuts_a)} cuts through the kernel route == C chunker")
+    gear_err = max(gear_errs)
+    if gear_err:
+        raise AssertionError(f"cdc: gear kernel != plain version (max abs err {gear_err})")
+    emit({"phase": "cdc", "checks": checks, "max_abs_err": gear_err,
+          "window_64MiB": {"kernel_ms": gear_ms, "plain_ms": gear_plain_ms,
+                           "library_ms": gear_library_ms, "bound_ms": gear_bound_ms,
+                           "bound_by": gear_bound_by,
+                           "share_of_bound": gear_bound_ms / gear_ms,
+                           "gbps": win / gear_ms / 1e6},
+          "chunk_1GiB": {"seconds": chunk_secs, "gbps": GiB / chunk_secs / 1e9,
+                         "c_chunker_seconds": native_cuts["A"][1],
+                         "c_chunker_gbps": GiB / native_cuts["A"][1] / 1e9}})
+
+    # -- 9. dedup: the dedup plane's main path --------------------------------
+    mut = np.random.default_rng(SEED + 11)
+    blob_b = b"".join((blob_a[: 256 * MiB], mut.bytes(4 * KiB), blob_a[256 * MiB : 768 * MiB],
+                       mut.bytes(MiB), blob_a[769 * MiB :]))
+    blob_c = np.random.default_rng(SEED + 12).bytes(256 * MiB)
+    blobs = {"A": blob_a, "B": blob_b, "C": blob_c}
+    work.mkdir(exist_ok=True)
+    store = CAStore(tempfile.mkdtemp(dir=work))
+    digests = {name: put(store, [data]) for name, data in blobs.items()}
+    index = DedupIndex(store)
+    if index.hasher.name != "cuda" or index.device.type != "cuda":
+        raise AssertionError("dedup did not take the card and the cuda hasher")
+    router = index.router
+    decision = router.calibrate(blob_a)
+    emit({"phase": "dedup", "calibration": {"decision": decision, "measured": router.measured,
+                                            "sample_bytes": router.sample_bytes}})
+    router.decision = "device"
+
+    stage = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            stage[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    router.spans = timed("chunk", router.spans)
+    index.hasher.hash_batch = timed("hash", index.hasher.hash_batch)
+    index.minhasher.sketch = timed("sketch", index.minhasher.sketch)
+    sha256_cuda.reset_launches()
+    cdc_cuda.reset_launches()
+    dedup_start = time.perf_counter()
+    records, ratios = {}, {}
+    for name, data in blobs.items():
+        stage.update(chunk=0.0, hash=0.0, sketch=0.0)
+        t0 = time.perf_counter()
+        records[name] = index.add_blob_sync(digests[name])
+        secs = time.perf_counter() - t0
+        ratios[name] = index.dedup_ratio
+        emit({"phase": "dedup", "blob": name, "blob_bytes": len(data),
+              "chunks": int(records[name].fps.size), "seconds": secs,
+              "gbps": len(data) / secs / 1e9, "stage_seconds": dict(stage),
+              "chunk_gbps": len(data) / stage["chunk"] / 1e9,
+              "dedup_ratio": ratios[name]})
+    dedup_secs = time.perf_counter() - dedup_start
+    dedup_launches = {**sha256_cuda.LAUNCHES, **cdc_cuda.LAUNCHES}
+    windows = sum(-(-len(d) // win) for d in blobs.values())
+    if dedup_launches["gear_candidates"] != windows or not dedup_launches["sha256_ragged"]:
+        raise AssertionError(f"dedup: launches {dedup_launches}, {windows} windows")
+    for name, data in blobs.items():
+        rec = records[name]
+        ends = np.cumsum(rec.sizes.astype(np.int64)).tolist()
+        want = native_cuts[name][0] if name in native_cuts else c_cuts(name, data)
+        if ends != want:
+            raise AssertionError(f"dedup: {name}'s spans != the C chunker's")
+        view = memoryview(data)
+        starts = [0] + ends[:-1]
+        digs = oracle.hash_batch([view[s:e] for s, e in zip(starts, ends)])
+        if not np.array_equal(digs[:, :8].copy().view(">u8").reshape(-1), rec.fps):
+            raise AssertionError(f"dedup: {name}'s fingerprints != hashlib's")
+    sim_b = index.similar(digests["B"])
+    sim_c = index.similar(digests["C"])
+    if not sim_b or sim_b[0]["digest"] != digests["A"].hex or sim_b[0]["score"] < 0.9:
+        raise AssertionError(f"dedup: similar(B) = {sim_b}")
+    if any(h["score"] > 0.1 for h in sim_c):
+        raise AssertionError(f"dedup: similar(C) = {sim_c}")
+    if ratios["B"] < 0.45:
+        raise AssertionError(f"dedup: ratio {ratios['B']} after A and B")
+
+    # The ragged SHA-256 at the chunk shape: A's chunks as the cuda hasher
+    # stages them (starts 16-byte aligned), in one launch and in the
+    # hasher's 256 MiB groups.
+    sizes_a = records["A"].sizes.astype(np.int64)
+    aligned = (sizes_a + 15) // 16 * 16
+    offs = np.concatenate([[0], np.cumsum(aligned)[:-1]])
+    flat = np.zeros(int(aligned.sum()), dtype=np.uint8)
+    src = np.frombuffer(blob_a, dtype=np.uint8)
+    for o, s, n in zip(offs.tolist(), [0] + np.cumsum(sizes_a)[:-1].tolist(), sizes_a.tolist()):
+        flat[o : o + n] = src[s : s + n]
+    flat_d = torch.from_numpy(flat).to(dev)
+    offs_d, lens_d = torch.from_numpy(offs).to(dev), torch.from_numpy(sizes_a).to(dev)
+    group = int(np.searchsorted(np.cumsum(aligned), 256 * MiB, side="right"))
+    sha256_ragged(flat_d, offs_d, lens_d)  # warm
+    rag_chunks_ms = statistics.median(
+        cuda_ms(lambda: sha256_ragged(flat_d, offs_d, lens_d)) for _ in range(3))
+    rag_group_ms = statistics.median(
+        cuda_ms(lambda: sha256_ragged(flat_d, offs_d[:group], lens_d[:group])) for _ in range(3))
+    rag_chunks_bound, _ = card.bound(sizes_a.tolist())
+    rag_group_bound, _ = card.bound(sizes_a[:group].tolist())
+    emit({"phase": "dedup", "launches": dedup_launches, "windows": windows,
+          "seconds": dedup_secs, "similar_B": sim_b, "similar_C": sim_c,
+          "dedup_ratio": index.dedup_ratio, "stats": index.stats(),
+          "sha256_ragged_chunk_shape": {
+              "rows": int(sizes_a.size), "min_row": int(sizes_a.min()),
+              "max_row": int(sizes_a.max()), "kernel_ms": rag_chunks_ms,
+              "bound_ms": rag_chunks_bound, "gbps": GiB / rag_chunks_ms / 1e6,
+              "group_rows": group, "group_kernel_ms": rag_group_ms,
+              "group_bound_ms": rag_group_bound}})
+    del flat, flat_d, blobs, blob_a, blob_b, blob_c, index, records
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print(card.name_power, flush=True)
     common = {"route": "cuda", "source": "kraken_tpu_torch/csrc/sha256.cu",
               "max_abs_err": max_abs_err, "bound_ms": main_bound_ms,
@@ -564,7 +824,14 @@ def main() -> int:
          "bound_by": packed_bound_by, "library_ms": None,
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 16 KiB",
          "ms_at_plain_shape": packed16_ms},
+        {"name": "gear_candidates", "route": "cuda", "source": "kraken_tpu_torch/csrc/gear.cu",
+         "replaces": "kraken_tpu/ops/cdc_pallas.py:81",
+         "launches": dedup_launches["gear_candidates"], "max_abs_err": gear_err,
+         "ms": gear_ms, "plain_ms": gear_plain_ms, "bound_ms": gear_bound_ms,
+         "bound_by": gear_bound_by, "library_ms": gear_library_ms,
+         "shape": "one 64 MiB window", "plain_shape": "one 64 MiB window"},
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
+        "dedup_seconds": dedup_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,12 @@ hasher (``ops.sha256.TorchPieceHasher``) and its SHA-256 kernel -- and the
 pipelined ingest plane (``core.ingest.IngestPipeline``, which the
 ``Generator`` takes as ``pipeline=``): staging windows from a
 ``utils.bufpool.BufferPool``, the host packer (``native``), and the packed
-path's two kernels (``csrc/sha256_packed.cu``). Entry points run on the
-card unless the caller passes a CPU hasher.
+path's two kernels (``csrc/sha256_packed.cu``) -- and the dedup plane
+(``origin.dedup.DedupIndex``): FastCDC chunking through the gear kernel
+(``ops.cdc``, ``csrc/gear.cu``), chunk fingerprints through the SHA-256
+kernel, MinHash sketches and LSH indexes (``ops.minhash``). Entry points run
+on the card unless the caller asks for the CPU (a CPU hasher,
+``device="cpu"``).
 """
 
 from kraken_tpu_torch.core import (
@@ -30,7 +34,11 @@ from kraken_tpu_torch.core import (
     get_hasher,
 )
 from kraken_tpu_torch.core.ingest import IngestConfig, IngestPipeline
+from kraken_tpu_torch.core.metainfo import ChunkRecipe
+from kraken_tpu_torch.ops.cdc import CDCParams, chunk, chunk_host, chunk_spans
+from kraken_tpu_torch.ops.minhash import CompactLSHIndex, LSHIndex, MinHasher
 from kraken_tpu_torch.ops.sha256 import TorchPieceHasher
+from kraken_tpu_torch.origin.dedup import ChunkSketchMetadata, DedupIndex
 from kraken_tpu_torch.origin.metainfogen import (
     Generator,
     PieceLengthConfig,
@@ -53,7 +61,12 @@ __all__ = [
     "BatchedVerifier",
     "BufferPool",
     "CAStore",
+    "CDCParams",
+    "ChunkRecipe",
+    "ChunkSketchMetadata",
+    "CompactLSHIndex",
     "CPUPieceHasher",
+    "DedupIndex",
     "Digest",
     "Digester",
     "DigestError",
@@ -61,8 +74,10 @@ __all__ = [
     "InfoHash",
     "IngestConfig",
     "IngestPipeline",
+    "LSHIndex",
     "MetaInfo",
     "MetaInfoError",
+    "MinHasher",
     "OriginTorrentArchive",
     "PieceError",
     "PieceHasher",
@@ -71,5 +86,8 @@ __all__ = [
     "TorchPieceHasher",
     "Torrent",
     "TorrentMetaMetadata",
+    "chunk",
+    "chunk_host",
+    "chunk_spans",
     "get_hasher",
 ]

@@ -25,6 +25,7 @@ import torch
 
 from kraken_tpu_torch.core.hasher import DIGEST_SIZE, PieceHasher, register_hasher
 from kraken_tpu_torch.core.hasher import record_hash_metrics as _record_hash_metrics
+from kraken_tpu_torch.ops import resolve_device
 from kraken_tpu_torch.ops.sha256_cuda import sha256_ragged, sha256_uniform
 
 
@@ -55,12 +56,7 @@ class TorchPieceHasher(PieceHasher):
         sub_batch_bytes: int = 256 * 1024 * 1024,
         device: str | torch.device | None = None,
     ):
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchPieceHasher needs a CUDA device; pass device='cpu' "
-                "for the plain PyTorch version"
-            )
+        self.device = resolve_device(device, "TorchPieceHasher")
         self._sub_batch_bytes = sub_batch_bytes
 
     def _staging(self, nbytes: int) -> torch.Tensor:

@@ -25,10 +25,8 @@ the top of its source.
 
 A tensor on the CPU goes through the plain PyTorch version
 (:mod:`kraken_tpu_torch.ops.sha256_ref`); a CUDA tensor
-launches the kernel or raises. The kernels are built at first use, from
-the sources in this package only -- one ``nvcc`` per source, all started
-together, then one link -- into ``BUILD_DIR/<hash of the sources and
-flags>/`` and loaded with ``ctypes``.
+launches the kernel or raises. The kernels live in the port's one kernel
+library, built at first use (:mod:`kraken_tpu_torch.ops.cuda_lib`).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernel.
@@ -36,16 +34,11 @@ that its main path went through the kernel.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
 import torch
 
+from kraken_tpu_torch.ops import cuda_lib
 from kraken_tpu_torch.ops.sha256_ref import (
     N_TILE,
     pack_tiles_ref,
@@ -56,103 +49,17 @@ from kraken_tpu_torch.ops.sha256_ref import (
     uniform_rows,
 )
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "sha256.cu", _PKG / "csrc" / "sha256_packed.cu")
-HEADERS = (_PKG / "csrc" / "sha256_common.cuh",)
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-LINK_FLAGS = ("-shared",)
-
 LAUNCHES = {
     "sha256_uniform": 0, "sha256_ragged": 0,
     "pack_tiles_device": 0, "sha256_packed_tiles": 0,
 }
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
     with _lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    return shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
-    )
-
-
-def library_path() -> Path:
-    """Where the built kernel library lives: keyed on the sources and the
-    flags, so an edit to either builds anew."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in SOURCES + HEADERS:
-        h.update(src.read_bytes())
-    return BUILD_DIR / h.hexdigest()[:16] / "libkt_sha256.so"
-
-
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; returns its path.
-    Each source compiles in its own ``nvcc``, all at once; the compiler's
-    resource report (``-Xptxas -v``) lands beside the library as
-    ``ptxas.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"tmp{os.getpid()}.{threading.get_ident()}"
-    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
-    tmp = out.with_name(f"{out.name}.{tag}")
-    try:
-        procs = [
-            subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            )
-            for src, obj in zip(SOURCES, objs)
-        ]
-        logs = [p.communicate()[1] for p in procs]
-        for src, p, log in zip(SOURCES, procs, logs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc {src.name} failed ({p.returncode}):\n{log}")
-        r = subprocess.run(
-            [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
-            capture_output=True, text=True,
-        )
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
-        (out.parent / "ptxas.log").write_text("".join(logs))
-        os.replace(tmp, out)
-    finally:
-        for f in (*objs, tmp):
-            f.unlink(missing_ok=True)
-    return out
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.sha256_rows_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib.sha256_rows_launch.restype = ctypes.c_int
-            for fn in (lib.sha256_packed_launch, lib.pack_tiles_launch):
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                ]
-                fn.restype = ctypes.c_int
-            lib.sha256_error_string.argtypes = [ctypes.c_int]
-            lib.sha256_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
 
 
 def _check_device(t: torch.Tensor) -> None:
@@ -164,14 +71,7 @@ def _run(name: str, entry: str, device: torch.device, *args) -> None:
     """Launch the C entry point ``entry(*args, stream)`` on ``device``'s
     current stream, raise if the launch was refused, and count it under
     ``name``."""
-    lib = _load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{entry} failed: {lib.sha256_error_string(rc).decode()}"
-        )
+    cuda_lib.launch(entry, device, *args)
     with _lock:
         LAUNCHES[name] += 1
 

@@ -18,9 +18,9 @@ Invariants:
 - digests are verified on commit unless the caller already streamed through
   a :class:`~kraken_tpu_torch.core.digest.Digester`.
 
-Only the flat-file tier the piece-hash plane needs is ported; the chunk
-tier, upload sessions, quarantine and the ``fsync`` durability mode wait
-for the slices that use them.
+Only the flat-file tier is ported (with the listing and deletion the dedup
+plane needs); the chunk tier, upload sessions, quarantine and the ``fsync``
+durability mode wait for the slices that use them.
 """
 
 from __future__ import annotations
@@ -175,10 +175,40 @@ class CAStore:
         with self.open_cache_file(d) as f:
             return f.read()
 
+    def list_cache_digests(self) -> list[Digest]:
+        """Every committed blob, sorted by digest."""
+        out = set()
+        for _dirpath, _dirnames, filenames in os.walk(self.cache_dir):
+            for name in filenames:
+                if len(name) == 64 and "._md_" not in name:
+                    out.add(name)
+        return sorted(Digest.from_hex(h) for h in out)
+
+    def delete_cache_file(self, d: Digest) -> None:
+        """Remove a committed blob and every metadata sidecar beside it."""
+        path = self.cache_path(d)
+        with self._lock:
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(path)
+            for md in self._metadata_paths(path):
+                with contextlib.suppress(FileNotFoundError):
+                    os.unlink(md)
+
     # -- metadata ----------------------------------------------------------
 
     def _md_path(self, data_path: str, name: str) -> str:
         return f"{data_path}._md_{name}"
+
+    def _metadata_paths(self, data_path: str) -> list[str]:
+        d = os.path.dirname(data_path)
+        base = os.path.basename(data_path)
+        if not os.path.isdir(d):
+            return []
+        return [
+            os.path.join(d, n)
+            for n in os.listdir(d)
+            if n.startswith(base + "._md_")
+        ]
 
     def set_metadata(self, d: Digest, md: Metadata) -> None:
         path = self._md_path(self.cache_path(d), md.name)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import kraken_tpu_torch as kt
+from kraken_tpu_torch.origin.dedup import ChunkRouter
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -82,8 +83,13 @@ with tempfile.TemporaryDirectory() as root:
     pipe = kt.IngestPipeline(h, kt.IngestConfig(window_bytes=1 << 20, pack_mode="native"))
     mi2 = kt.Generator(o, piece_lengths=kt.PieceLengthConfig(((0, 1024),)), pipeline=pipe).generate_sync(d2)
     assert mi2.piece_hashes == kt.CPUPieceHasher().hash_pieces(blob2, 1024).tobytes()
+    # The dedup plane: chunk, fingerprint, sketch, index.
+    index = kt.DedupIndex(o, hasher=kt.CPUPieceHasher(), params=kt.CDCParams(64, 256, 1024), device="cpu")
+    record = index.add_blob_sync(d2)
+    assert index.similar(d2) == [] and index.stats()["blobs"] == 1
 mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kraken_tpu")]
-print(json.dumps({"pieces": mi.num_pieces, "ingest_pieces": mi2.num_pieces, "forbidden": mods}))
+print(json.dumps({"pieces": mi.num_pieces, "ingest_pieces": mi2.num_pieces,
+                  "chunks": int(record.fps.size), "forbidden": mods}))
 """
 
 
@@ -97,7 +103,8 @@ def test_slice_runs_without_jax_or_kraken_tpu_loaded():
     )
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out == {"pieces": 6, "ingest_pieces": 1025, "forbidden": []}
+    assert out["chunks"] > 1000
+    assert out == {"pieces": 6, "ingest_pieces": 1025, "chunks": out["chunks"], "forbidden": []}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
@@ -110,4 +117,21 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
         kt.Generator(kt.CAStore(str(tmp_path)))
     with pytest.raises(RuntimeError, match="CUDA"):
         kt.BatchedVerifier()
+    store = kt.CAStore(str(tmp_path))
+    params = kt.CDCParams(64, 256, 1024)
+    for entry in (
+        lambda: kt.chunk(b"x" * 300, params),
+        lambda: kt.chunk_spans(b"", params),
+        lambda: ChunkRouter(params),
+        lambda: kt.MinHasher(),
+        lambda: kt.DedupIndex(store),
+        lambda: kt.DedupIndex(store, hasher=kt.CPUPieceHasher()),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
     assert kt.TorchPieceHasher(device="cpu").device == torch.device("cpu")
+    assert kt.chunk(b"x" * 300, params, device="cpu") == [300]
+    assert ChunkRouter(params, device="cpu").device == torch.device("cpu")
+    assert kt.MinHasher(device="cpu").device == torch.device("cpu")
+    index = kt.DedupIndex(store, device="cpu")
+    assert index.hasher.name == "cuda" and index.hasher.device == torch.device("cpu")
