@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs nine phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs ten phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -76,9 +76,24 @@ without a result:
    gear kernel must launch once per 64 MiB window and the ragged SHA-256
    at least once. Each blob's wall splits into chunk, hash and sketch
    seconds. The ragged SHA-256 is timed at the chunk shape.
+10. ``relayout`` -- the diagnostic kernel of ``csrc/transpose.cu`` (the
+   natural SHA-256 kernel's loads with no rounds) against its plain
+   version, word for word: 1024 x 512 B, 2048 x 1 KiB, and a
+   piece-distinct 2048 x 512 B input that pins the ``[t, i, s, l]``
+   layout to its closed form. Then the natural-vs-packed gap decomposition
+   (``kraken_tpu_torch.bench.transpose.decompose``) at the JAX bench's
+   shape, 1024 x 256 KiB, and at 132 x 1024 x 64 KiB: the transpose-only,
+   natural and packed kernels timed, each beside its bound; the kernel
+   held against its plain version and the natural digests against the
+   packed ones at both shapes. Each decomposition is a path of its own: the
+   counters are zeroed just before it and read just after, and every
+   kernel it drives must have launched exactly as often as it times them.
+
+Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
-agent; each ingest run; the dedup indexing) and read just after it: every
+agent; each ingest run; the dedup indexing; each decomposition) and read
+just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -123,6 +138,9 @@ OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 16
 # The packed hash reads big-endian words: no byte swaps.
 OPS_PER_BLOCK_PACKED = OPS_PER_BLOCK - 16
 TAIL = 12_345
+# The relayout decomposition's full-card shape: 132 tiles of 1024 pieces,
+# 1,024 pieces an SM, chip_sha256_sweep.py's top point.
+FULL_TILES = 132
 # Integer operations of the gear pass a byte, in the rolling form: the gear
 # map 6 (multiply-add, shift, xor, multiply, shift, xor), one shift-add, and
 # two mask tests of 2 (and, compare).
@@ -178,20 +196,20 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def smi(query: str, *fmt: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu`` answer."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=" + ",".join(("csv", "noheader", *fmt))],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 class Card:
     """The card's peaks, read from the card itself."""
 
     def __init__(self):
-        q = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
-        self.name_power = q
-        clk = subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip().splitlines()[0]
-        self.sm_clock_hz = float(clk) * 1e6
+        self.name_power = smi("name,power.limit")
+        self.sm_clock_hz = float(smi("clocks.max.sm", "nounits")) * 1e6
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.int_ops_per_s = self.sms * INT32_LANES_PER_SM * self.sm_clock_hz
 
@@ -208,6 +226,12 @@ class Card:
         ops_ms = ops / self.int_ops_per_s * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+    @staticmethod
+    def sm_clock_mhz() -> float:
+        """The SM clock now, read right after a timed launch: a short launch
+        on a card whose clock has not ramped reads slow."""
+        return float(smi("clocks.sm", "nounits"))
 
 
 def main() -> int:
@@ -226,7 +250,8 @@ def main() -> int:
         TorrentMetaMetadata, get_hasher, native,
     )
     from kraken_tpu_torch import CDCParams, DedupIndex, chunk
-    from kraken_tpu_torch.ops import cdc_cuda, cuda_lib, sha256_cuda
+    from kraken_tpu_torch.bench.transpose import REPS, decompose
+    from kraken_tpu_torch.ops import cdc_cuda, cuda_lib, sha256_cuda, transpose_cuda
     from kraken_tpu_torch.ops.cdc_cuda import LEAD, candidate_indices, gear_mask, padded
     from kraken_tpu_torch.ops.cdc_ref import gear_candidates_ref, gear_mask_ref
     from kraken_tpu_torch.ops.sha256_cuda import (
@@ -236,6 +261,8 @@ def main() -> int:
         pack_tiles_ref, packed_nb, sha256_packed_ref, sha256_rows_ref,
         sha256_uniform_ref,
     )
+    from kraken_tpu_torch.ops.transpose_cuda import transpose_only
+    from kraken_tpu_torch.ops.transpose_ref import transpose_only_ref
     from kraken_tpu_torch.utils.metrics import REGISTRY
 
     card = Card()
@@ -336,6 +363,7 @@ def main() -> int:
     work = REPO / ".chip_smoke_work"
     work.mkdir(exist_ok=True)
     sha256_cuda.reset_launches()
+    transpose_cuda.reset_launches()
     main_start = time.perf_counter()
     for i, size in enumerate((GiB, GiB + 12_345)):
         root = tempfile.mkdtemp(dir=work)
@@ -401,7 +429,7 @@ def main() -> int:
                   "launches": {k: sha256_cuda.LAUNCHES[k] - before[k] for k in before}})
         finally:
             shutil.rmtree(root, ignore_errors=True)
-    main_launches = dict(sha256_cuda.LAUNCHES)
+    main_launches = {**sha256_cuda.LAUNCHES, **transpose_cuda.LAUNCHES}
     main_secs = time.perf_counter() - main_start
     shutil.rmtree(work, ignore_errors=True)
     if not (main_launches["sha256_uniform"] and main_launches["sha256_ragged"]):
@@ -610,6 +638,7 @@ def main() -> int:
     gear_mask(buf, win, 31, ms_, ml_)  # warm
     gear_ms = statistics.median(cuda_ms(lambda: gear_mask(buf, win, 31, ms_, ml_))
                                 for _ in range(3))
+    gear_clock_mhz = card.sm_clock_mhz()
     gear_plain_ms = cuda_ms(lambda: gear_mask_ref(buf, win, 31, ms_, ml_, LEAD))
 
     def i32(v):
@@ -685,7 +714,7 @@ def main() -> int:
                            "library_ms": gear_library_ms, "bound_ms": gear_bound_ms,
                            "bound_by": gear_bound_by,
                            "share_of_bound": gear_bound_ms / gear_ms,
-                           "gbps": win / gear_ms / 1e6},
+                           "gbps": win / gear_ms / 1e6, "sm_clock_mhz": gear_clock_mhz},
           "chunk_1GiB": {"seconds": chunk_secs, "gbps": GiB / chunk_secs / 1e9,
                          "c_chunker_seconds": native_cuts["A"][1],
                          "c_chunker_gbps": GiB / native_cuts["A"][1] / 1e9}})
@@ -795,6 +824,73 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 10. relayout: the diagnostic kernel and the gap decomposition -------
+    checks, t_errs = [], []
+    for m, p in ((1024, 512), (2048, KiB)):
+        rows = torch.from_numpy(rng.integers(0, 256, (m, p), dtype=np.uint8)).to(dev)
+        t_errs.append(word_err(transpose_only(rows), transpose_only_ref(rows)))
+        checks.append(f"{m} x {p} B vs plain")
+    # Piece-distinct: only the first line of piece q is not zero, and its
+    # big-endian word i is q * 8 + i, so word i of piece t * 1024 + s * 128
+    # + l must come out at [t, i, s, l] as exactly that.
+    m = 2048
+    first = ((np.arange(m, dtype=np.uint32)[:, None] << 3) | np.arange(8, dtype=np.uint32))
+    host_rows = np.zeros((m, 512), dtype=np.uint8)
+    host_rows[:, :32] = first.astype(">u4").view(np.uint8)
+    rows = torch.from_numpy(host_rows).to(dev)
+    got = transpose_only(rows)
+    t_errs.append(word_err(got, transpose_only_ref(rows)))
+    layout = first.reshape(m // 1024, 8, 128, 8).transpose(0, 3, 1, 2).view(np.int32)
+    if not np.array_equal(got.cpu().numpy(), layout):
+        raise AssertionError("relayout: the [t, i, s, l] layout is wrong")
+    checks.append(f"piece-distinct {m} x 512 B vs plain and the closed form")
+    del rows, got
+
+    def legs(r):
+        """Each leg of a decomposition: ms, GB/s of input, bound."""
+        m, p = r["pieces"], r["piece_len"]
+        nb = p // 64
+        bounds = {
+            "transpose_only": card.bound_of(m * p // 2, m * p + m * 32),  # bswap + xor a word
+            "natural": card.bound([p] * m),
+            "rounds_only_packed": card.bound_of(m * (nb + 1) * OPS_PER_BLOCK_PACKED,
+                                                m * p + m * 32),
+        }
+        return {name: {"ms": r[f"{name}_ms"], "gbps": r[f"{name}_gbps"], "bound_ms": b,
+                       "bound_by": by, "share_of_bound": b / r[f"{name}_ms"]}
+                for name, (b, by) in bounds.items()}
+
+    # A warm-up and REPS timed launches a leg, one pack, no ragged hash.
+    expect = {"sha256_uniform": REPS + 1, "sha256_ragged": 0, "pack_tiles_device": 1,
+              "sha256_packed_tiles": REPS + 1, "transpose_only": REPS + 1}
+    decomps, relayout_launches = {}, {}
+    for label, tiles, p in (("bench_shape", 1, 256 * KiB), ("full_card", FULL_TILES, 64 * KiB)):
+        t0 = time.perf_counter()
+        sha256_cuda.reset_launches()
+        transpose_cuda.reset_launches()
+        r = decompose(tiles, p)
+        launches = {**sha256_cuda.LAUNCHES, **transpose_cuda.LAUNCHES}
+        clock = card.sm_clock_mhz()  # decompose raised if a check failed
+        if launches != expect:
+            raise AssertionError(f"relayout {label}: launches {launches} != {expect}")
+        checks.append(f"decompose {tiles} x 1024 x {p} B: kernel vs plain, natural vs packed digests")
+        decomps[label] = r
+        relayout_launches[label] = launches["transpose_only"]
+        emit({"phase": "relayout", "shape": label, "tiles": r["tiles"],
+              "piece_len": r["piece_len"], "value": r["value"],
+              "predicted_natural_gbps": r["predicted_natural_gbps"], "legs": legs(r),
+              "launches": launches,
+              "transpose_only_plain_ms": r["transpose_only_plain_ms"],
+              "sm_clock_mhz": clock, "seconds": time.perf_counter() - t0})
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_err = max(t_errs)
+    if t_err:
+        raise AssertionError(f"relayout: transpose_only != plain version (max abs err {t_err})")
+    full = decomps["full_card"]
+    t_bound = legs(full)["transpose_only"]
+    emit({"phase": "relayout", "checks": checks, "max_abs_err": t_err})
+
     print(card.name_power, flush=True)
     common = {"route": "cuda", "source": "kraken_tpu_torch/csrc/sha256.cu",
               "max_abs_err": max_abs_err, "bound_ms": main_bound_ms,
@@ -830,6 +926,15 @@ def main() -> int:
          "ms": gear_ms, "plain_ms": gear_plain_ms, "bound_ms": gear_bound_ms,
          "bound_by": gear_bound_by, "library_ms": gear_library_ms,
          "shape": "one 64 MiB window", "plain_shape": "one 64 MiB window"},
+        # A diagnostic on no path of the system: the main path launches it
+        # no time; each decomposition's own launches stand beside.
+        {"name": "transpose_only", "route": "cuda", "source": "kraken_tpu_torch/csrc/transpose.cu",
+         "replaces": "bench_transpose.py:80", "launches": main_launches["transpose_only"],
+         "relayout_launches": relayout_launches, "max_abs_err": t_err,
+         "ms": full["transpose_only_ms"], "plain_ms": full["transpose_only_plain_ms"],
+         "bound_ms": t_bound["bound_ms"], "bound_by": t_bound["bound_by"], "library_ms": None,
+         "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
+         "ms_at_bench_shape": decomps["bench_shape"]["transpose_only_ms"]},
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
         "dedup_seconds": dedup_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})

@@ -55,14 +55,7 @@ sha256_rows_kernel(const uint8_t* __restrict__ flat,
     // four 128-bit loads per block.
     const uint4* q = reinterpret_cast<const uint4*>(p);
     for (uint64_t blk = 0; blk < nfull; ++blk, q += 4) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint4 v = __ldg(q + k);
-        w[4 * k + 0] = bswap(v.x);
-        w[4 * k + 1] = bswap(v.y);
-        w[4 * k + 2] = bswap(v.z);
-        w[4 * k + 3] = bswap(v.w);
-      }
+      load_block_aligned(q, w);
       compress(st, w);
     }
   } else if (((uintptr_t)p & 3) == 0) {

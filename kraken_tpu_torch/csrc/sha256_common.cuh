@@ -1,6 +1,7 @@
 // SHA-256 compression shared by the kernels of csrc/sha256.cu and
 // csrc/sha256_packed.cu: the round constants, the initial state, and one
-// unrolled compression with a 16-word schedule ring in registers.
+// unrolled compression with a 16-word schedule ring in registers; and the
+// natural kernel's aligned block load, shared with csrc/transpose.cu.
 //
 // Each .cu file is its own translation unit (no relocatable device code),
 // so everything here has internal linkage and each kernel gets its own
@@ -41,6 +42,23 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
 // Little-endian load -> big-endian SHA word.
 __device__ __forceinline__ uint32_t bswap(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
+}
+
+// One 64-byte block of a 16-byte aligned natural row at q, as SHA words:
+// four 128-bit read-only loads, each word byte-swapped to big-endian. The
+// natural hash (csrc/sha256.cu) and the relayout diagnostic
+// (csrc/transpose.cu) both load through here, so the diagnostic's loads
+// are the hash's by construction.
+__device__ __forceinline__ void load_block_aligned(const uint4* __restrict__ q,
+                                                   uint32_t w[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint4 v = __ldg(q + k);
+    w[4 * k + 0] = bswap(v.x);
+    w[4 * k + 1] = bswap(v.y);
+    w[4 * k + 2] = bswap(v.z);
+    w[4 * k + 3] = bswap(v.w);
+  }
 }
 
 // One compression of the block in w[16] into st[8]. Fully unrolled: every

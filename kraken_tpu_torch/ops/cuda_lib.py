@@ -8,7 +8,8 @@ temp file and an atomic rename. The compiler's resource report
 (``-Xptxas -v``) lands beside it as ``ptxas.log``.
 
 The wrappers (:mod:`~kraken_tpu_torch.ops.sha256_cuda`,
-:mod:`~kraken_tpu_torch.ops.cdc_cuda`) launch through :func:`launch`, which
+:mod:`~kraken_tpu_torch.ops.cdc_cuda`,
+:mod:`~kraken_tpu_torch.ops.transpose_cuda`) launch through :func:`launch`, which
 raises when the launch was refused; each keeps its own launch counter.
 """
 
@@ -26,7 +27,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(
-    _PKG / "csrc" / name for name in ("sha256.cu", "sha256_packed.cu", "gear.cu")
+    _PKG / "csrc" / name
+    for name in ("sha256.cu", "sha256_packed.cu", "gear.cu", "transpose.cu")
 )
 HEADERS = (_PKG / "csrc" / "sha256_common.cuh",)
 BUILD_DIR = _PKG / "_build"
@@ -43,6 +45,7 @@ _ENTRIES = {
     "sha256_packed_launch": (_P, _I64, _I64, _I64, _P),
     "pack_tiles_launch": (_P, _I64, _I64, _I64, _P),
     "gear_mask_launch": (_P, _I64, _I32, _U32, _U32, _P),
+    "transpose_only_launch": (_P, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()

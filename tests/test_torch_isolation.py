@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import kraken_tpu_torch as kt
+from kraken_tpu_torch.bench.transpose import decompose
 from kraken_tpu_torch.origin.dedup import ChunkRouter
 
 REPO = Path(__file__).resolve().parent.parent
@@ -126,6 +127,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
         lambda: kt.MinHasher(),
         lambda: kt.DedupIndex(store),
         lambda: kt.DedupIndex(store, hasher=kt.CPUPieceHasher()),
+        lambda: decompose(1, 512),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
