@@ -11,14 +11,19 @@ printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
 1. ``build``   -- the kernel library, the compiler's register report, the
-   gear kernel's SASS instruction count, and which host packer was built
-   (``c``, or ``numpy`` without a compiler).
+   gear kernel's SASS instruction count, the SHA-256 kernels' per-block
+   SASS counts by pipe (below), and which host packer was built (``c``, or
+   ``numpy`` without a compiler).
 2. ``kernels`` -- the SHA-256 kernel of ``csrc/sha256.cu`` against its
    plain PyTorch version and hashlib,
    on the card: lengths 0..257 (16-byte aligned and skewed starts, so all
    three load paths run), 37 x 4 KiB uniform pieces, 300 ragged pieces of
    0-70,000 bytes, one 4 MiB + 13 piece, and the main path's row counts
-   (64 uniform rows; 64 ragged rows and a short one) at 16 KiB a row.
+   (64 uniform rows; 64 ragged rows and a short one) at 16 KiB a row. The
+   edges of the block ring: rows of 0-3 full blocks with tails of 0, 55,
+   56 and 63 bytes (ragged at three alignments, and 33 uniform rows of
+   each length), and rows ending at the last byte of an exact-size
+   tensor.
    Exact equality: SHA-256 admits no tolerance (``max_abs_err`` must be 0).
    The plain version runs ~2,000 eager PyTorch ops per 64-byte block, so a
    4 MiB row (65,537 blocks) is beyond it; such rows are held against
@@ -35,11 +40,14 @@ without a result:
 5. ``batch``   -- ``hash_pieces`` over 1024 x 4 MiB pieces, 4 GiB on the
    device (BASELINE.json config 3 at a tenth): the kernel timed with CUDA
    events (a warm-up, then the median of 3) against its bound, and the
-   hasher end to end from host memory.
+   hasher end to end from host memory. Then ``main_shape``: each SHA-256
+   wrapper at the main path's launch, 64 x 4 MiB, with its cycles a block
+   of the longest row, its chain bound and the share of it.
 6. ``packed``  -- the two kernels of ``csrc/sha256_packed.cu`` against
    their plain versions and hashlib: the pack bit for bit at the full
    window (1024 x 4 MiB), 1024 x 576 B and 2048 x 64 B; the packed hash
-   at 1024 x 16 KiB and 1024 x 576 B against the plain version, at
+   at 1024 x 16 KiB, 1024 x 576 B and 1024 pieces of 1, 2 and 8 blocks
+   (8 = NB: the tensor's last block) against the plain version, at
    1024 x 4 MiB against hashlib. Both kernels timed at 1024 x 4 MiB, the
    plain versions at the shape they ran, and the pack beside one PyTorch
    expression computing the same relayout.
@@ -98,11 +106,22 @@ wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 
 The bound of a launch is the larger of its bytes over the card's memory
-rate (each input read once, each output written once) and its integer
-operations over the card's INT32 rate: SMs x 64 INT32 lanes x the maximum
-SM clock. SHA-256 needs ``OPS_PER_BLOCK`` integer operations per 64-byte
-block (below), so it is bound by operations; the pack moves bytes; the
-gear pass needs ``GEAR_OPS_PER_BYTE`` a byte against 2 bytes moved.
+rate (each input read once, each output written once) and its work over
+the card's rate for it. The pack moves bytes; the gear pass needs
+``GEAR_OPS_PER_BYTE`` integer operations a byte (over SMs x 64 INT32 lanes
+x the maximum SM clock) against 2 bytes moved. A SHA-256 kernel's work is
+what the function needs a block (``SHA_ROUNDS``, ``SHA_SCHEDULE``,
+``SHA_BSWAP``), each operation in its least Hopper form and by the pipes
+it can issue to: rotates, shifts and logic only to the integer ALU pipe,
+adds to it or to the FMA pipe. Its throughput bound puts every SM at its
+two pipes' lanes and issue slots; its chain bound runs the longest row's
+64 rounds a block one after another at one warp's issue (the schedule can
+run on another warp), each ALU instruction holding its 16-lane pipe 2
+clocks. The bound is the largest of the two and the byte bound: the chain
+at the main path's 64-row launches, the throughput with the card full.
+The build phase prints each kernel's per-block loop as built, by pipe
+(``cuobjdump -sass``), beside the bound: how far the build is from the
+function's work.
 """
 
 from __future__ import annotations
@@ -129,14 +148,49 @@ SEED = 0
 KiB, MiB, GiB = 1 << 10, 1 << 20, 1 << 30
 PIECE = 4 * MiB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-INT32_LANES_PER_SM = 64
-# Integer operations of one SHA-256 compression with Hopper's three-input
-# instructions (LOP3, IADD3) and funnel-shift rotates: 64 rounds x 14
-# (Sigma1 4, Ch 1, Sigma0 4, Maj 1, adds 4) + 48 schedule steps x 10
-# (sigma0 4, sigma1 4, adds 2) + 8 feed-forward adds + 16 byte swaps.
-OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 16
-# The packed hash reads big-endian words: no byte swaps.
-OPS_PER_BLOCK_PACKED = OPS_PER_BLOCK - 16
+# Hopper's issue model, for the SHA-256 bounds. NVIDIA's CUDA
+# C++ Programming Guide ("Arithmetic Instructions", compute capability
+# 9.0) gives 64 results a clock an SM for 32-bit integer add, shift,
+# compare and bitwise operations, and 64 for 32-bit integer multiply-add;
+# the Hopper white paper splits an SM into 4 sub-partitions, each issuing
+# one warp instruction a clock, with 16 INT32 lanes (the ALU pipe) and 32
+# FP32 lanes, 16 of which also run IMAD (the FMA pipe). So a warp
+# instruction holds its pipe for 32 / 16 = 2 clocks and a sub-partition
+# issues at most one a clock.
+WARP = 32
+ALU_LANES_PER_SM = 64
+FMA_LANES_PER_SM = 64
+DISPATCH_PER_SM = 4  # warp instructions issued a clock, one per sub-partition
+SUBPARTITIONS = 4
+ALU_OPCODES = frozenset((
+    "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "ISETP",
+    "ICMP", "SEL", "LEA", "MOV", "IABS", "IMNMX", "VIADD", "VIMNMX", "BMSK",
+    "SGXT", "PLOP3", "P2R", "R2P",
+))
+FMA_OPCODES = frozenset(("IMAD", "IMUL", "FFMA", "FMUL", "FADD"))
+# The schedule and the rounds are unrolled, so a per-block loop holds at
+# least 48 schedule steps or 64 rounds of several instructions each.
+MIN_BLOCK_LOOP = 256
+ROWS_KERNEL, PACKED_KERNEL = "sha256_rows_kernel", "sha256_packed_kernel"
+# SHA-256's work a 64-byte block (FIPS 180-4), each operation once in its
+# least Hopper form: a rotate or shift is one funnel shift (SHF), a logic
+# function of up to three inputs one LOP3, an add of up to three terms one
+# IADD3. Rotates, shifts and logic issue only to the ALU pipe ("alu"); an
+# add issues to the ALU pipe or, as IMAD, to the FMA pipe ("either",
+# counted as IADD3s: the FMA form adds two terms, so this undercounts, and
+# the bound stays a bound). A round: Sigma1 and Sigma0 (3 rotates and a
+# three-input xor each), Ch and Maj (a LOP3 each); T1 = h + Sigma1 + Ch +
+# K + W (two adds), e = d + T1, a = T1 + Sigma0 + Maj; then the state's 8
+# adds. A schedule step: sigma0 and sigma1 (2 rotates, a shift and a xor
+# each), W = sigma1 + W[t-7] + sigma0 + W[t-16] (two adds). A natural row's
+# 16 words are byte-swapped (a PRMT each); a packed tile's are big-endian.
+SHA_ROUNDS = {"alu": 64 * (6 + 4), "either": 64 * 4 + 8}
+SHA_SCHEDULE = {"alu": 48 * (6 + 2), "either": 48 * 2}
+SHA_BSWAP = {"alu": 16, "either": 0}
+SHA_BLOCK = {
+    ROWS_KERNEL: {k: SHA_ROUNDS[k] + SHA_SCHEDULE[k] + SHA_BSWAP[k] for k in SHA_ROUNDS},
+    PACKED_KERNEL: {k: SHA_ROUNDS[k] + SHA_SCHEDULE[k] for k in SHA_ROUNDS},
+}
 TAIL = 12_345
 # The relayout decomposition's full-card shape: 132 tiles of 1024 pieces,
 # 1,024 pieces an SM, chip_sha256_sweep.py's top point.
@@ -174,16 +228,117 @@ def words_to_bytes(words: torch.Tensor) -> np.ndarray:
     return words.cpu().numpy().view(np.uint32).astype(">u4").view(np.uint8).reshape(-1, 32)
 
 
-def sass_instructions(sass: str, kernel: str) -> int:
-    """Instructions of one kernel's function in a ``cuobjdump -sass``
-    listing."""
-    count, inside = 0, False
+_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def sass_function(sass: str, kernel: str) -> list[tuple[int, str]]:
+    """(address, instruction) of each instruction of one kernel's function
+    in a ``cuobjdump -sass`` listing."""
+    out, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
-        elif inside and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
-            count += 1
-    return count
+        elif inside and (m := _SASS_LINE.match(line)):
+            out.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def sass_instructions(sass: str, kernel: str) -> int:
+    """Instructions of one kernel's function in a ``cuobjdump -sass``
+    listing."""
+    return len(sass_function(sass, kernel))
+
+
+def sass_loops(ins: list[tuple[int, str]]) -> list[list[str]]:
+    """Each loop of a function: a backward branch and every instruction from
+    its target to it."""
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b.*0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            start = int(m.group(1), 16)
+            loops.append([t for a, t in ins if start <= a <= addr])
+    return loops
+
+
+def opcode(instruction: str) -> str:
+    """An instruction's opcode with its modifiers (a predicate is dropped)."""
+    words = instruction.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def block_loop(sass: str, kernel: str, min_len: int = MIN_BLOCK_LOOP) -> list[str]:
+    """The instructions of a SHA-256 kernel's per-block loop on the main
+    path: its one loop of at least ``min_len`` instructions that copies
+    blocks through the shared-memory ring (``LDGSTS``)."""
+    loops = [lp for lp in sass_loops(sass_function(sass, kernel))
+             if len(lp) >= min_len and any(opcode(i).startswith("LDGSTS") for i in lp)]
+    if len(loops) != 1:
+        raise ValueError(f"{kernel}'s SASS has {len(loops)} ring loops of {min_len}+ "
+                         "instructions, not 1")
+    return loops[0]
+
+
+def pipe_of(instruction: str) -> str:
+    """``alu``, ``fma`` or ``other``: the pipe an instruction issues to
+    (opcode before its first dot)."""
+    base = opcode(instruction).split(".")[0]
+    return "alu" if base in ALU_OPCODES else "fma" if base in FMA_OPCODES else "other"
+
+
+def pipe_counts(instructions: list[str]) -> dict[str, int]:
+    counts = {"alu": 0, "fma": 0, "other": 0}
+    for ins in instructions:
+        counts[pipe_of(ins)] += 1
+    return counts
+
+
+def chain_cycles(work: dict[str, int]) -> int:
+    """Least clocks one warp alone on its sub-partition takes for this
+    work: each ALU-only instruction holds the ALU pipe 2 clocks, the adds
+    fill the FMA pipe beside it (the two pipes have equal lanes), and
+    every instruction takes one of the warp's issue slots, one a clock."""
+    hold = WARP * SUBPARTITIONS // ALU_LANES_PER_SM
+    return max(hold * work["alu"], work["alu"] + work["either"])
+
+
+def throughput_cycles(work: dict[str, int]) -> float:
+    """Least SM clocks a row's block of this work costs when the SM is
+    full: the ALU-only operations over the ALU pipe's lanes, all of them
+    over both pipes' lanes and over the SM's issue slots."""
+    ops = work["alu"] + work["either"]
+    return max(work["alu"] / ALU_LANES_PER_SM, ops / (ALU_LANES_PER_SM + FMA_LANES_PER_SM),
+               ops / (DISPATCH_PER_SM * WARP))
+
+
+def sha_bounds(kernel: str, blocks: int, longest: int, nbytes: float, sms: int,
+               clock_hz: float) -> dict:
+    """Least time (ms) for ``kernel`` to hash ``blocks`` SHA-256 blocks,
+    ``longest`` of them in one row's chain, over ``nbytes`` moved: the
+    larger of the throughput bound (every SM at the pipe limits of a
+    block's work), the chain bound (the longest row's rounds one block
+    after another at one warp's issue; the schedule's own chain is
+    shorter) and the byte bound."""
+    thr = blocks * throughput_cycles(SHA_BLOCK[kernel]) / sms / clock_hz * 1e3
+    chain = longest * chain_cycles(SHA_ROUNDS) / clock_hz * 1e3
+    byt = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = max(thr, chain, byt)
+    return {"bound_ms": ms, "bound_by": "bytes" if byt >= max(thr, chain) else "operations",
+            "throughput_bound_ms": thr, "chain_bound_ms": chain, "bytes_bound_ms": byt}
+
+
+def rows_work(lengths) -> tuple[int, int, int]:
+    """(blocks, blocks of the longest row, bytes moved) of hashing rows of
+    these lengths: rows, offsets, lengths and digests."""
+    blocks = [nblocks(n) for n in lengths]
+    return sum(blocks), max(blocks), sum(lengths) + len(lengths) * (8 + 8 + 32)
+
+
+def packed_work(pieces: int, nb: int) -> tuple[int, int, int]:
+    """(blocks, blocks of a piece, bytes moved) of hashing ``pieces`` packed
+    pieces of ``nb`` blocks: the data blocks and a padding block each, the
+    data read and the digests written."""
+    return pieces * (nb + 1), nb + 1, pieces * nb * 64 + pieces * 32
 
 
 def cuda_ms(fn) -> float:
@@ -205,20 +360,39 @@ def smi(query: str, *fmt: str) -> str:
 
 
 class Card:
-    """The card's peaks, read from the card itself."""
+    """The card's peaks, read from the card itself, and the SHA-256
+    kernels' per-block SASS counts, read from the built library."""
 
     def __init__(self):
         self.name_power = smi("name,power.limit")
         self.sm_clock_hz = float(smi("clocks.max.sm", "nounits")) * 1e6
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
-        self.int_ops_per_s = self.sms * INT32_LANES_PER_SM * self.sm_clock_hz
+        self.int_ops_per_s = self.sms * ALU_LANES_PER_SM * self.sm_clock_hz
+        self._sass = None
+
+    @property
+    def sass(self) -> str:
+        """``cuobjdump -sass`` of the port's kernel library (built if not
+        yet)."""
+        if self._sass is None:
+            from kraken_tpu_torch.ops import cuda_lib
+            cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+            self._sass = subprocess.run([cuobjdump, "-sass", str(cuda_lib.build())],
+                                        capture_output=True, text=True, check=True).stdout
+        return self._sass
+
+    def sass_per_block(self, kernel: str) -> dict[str, int]:
+        """``kernel``'s per-block loop as built, by pipe."""
+        return pipe_counts(block_loop(self.sass, kernel))
+
+    def sha_bound(self, kernel: str, blocks: int, longest: int, nbytes: float) -> dict:
+        return sha_bounds(kernel, blocks, longest, nbytes, self.sms, self.sm_clock_hz)
 
     def bound(self, lengths) -> tuple[float, str]:
         """Least time (ms) the card could take to hash rows of these
-        lengths, and what bounds it."""
-        ops = sum(nblocks(n) for n in lengths) * OPS_PER_BLOCK
-        nbytes = sum(lengths) + len(lengths) * (8 + 8 + 32)  # rows, offsets, lengths, digests
-        return self.bound_of(ops, nbytes)
+        lengths with ``sha256_rows_kernel``, and what bounds it."""
+        b = self.sha_bound(ROWS_KERNEL, *rows_work(lengths))
+        return b["bound_ms"], b["bound_by"]
 
     def bound_of(self, ops: float, nbytes: float) -> tuple[float, str]:
         """Least time (ms) for ``ops`` integer operations over ``nbytes``
@@ -281,9 +455,8 @@ def main() -> int:
         ln.strip() for ln in (lib.parent / "ptxas.log").read_text().splitlines()
         if "entry function" in ln or "registers" in ln or "spill" in ln
     ]
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
+    sass = card.sass
+    sha_sass = {k: card.sass_per_block(k) for k in (ROWS_KERNEL, PACKED_KERNEL)}
     # The gear kernel is unrolled and loop-free but for its 5-lap load
     # loop: per position, its instructions times a block's 256 threads over
     # its 4,096 positions (the load loop counted once: a lower bound).
@@ -292,6 +465,7 @@ def main() -> int:
           "library": str(lib.relative_to(REPO)), "ptxas": ptxas,
           "gear_sass_instructions": gear_sass,
           "gear_sass_per_byte": gear_sass * 256 / cdc_cuda.TILE,
+          "sha_sass_per_block": sha_sass,
           "host_packer": packer})
 
     # -- 2. kernels --------------------------------------------------------
@@ -336,6 +510,41 @@ def main() -> int:
     big = [rng.bytes(4 * MiB + 13)]
     hold("4 MiB + 13", sha256_ragged(*ragged_inputs(big)), None, big)
     checks.append("ragged 1 x (4 MiB + 13), hashlib only")
+
+    # The prefetch's edges: rows of 0-3 full blocks with tails of 0, 55, 56
+    # and 63 bytes, as ragged rows (16-byte aligned, then skewed) and as
+    # 33 uniform rows of each length (a full warp and one more lane).
+    edge = [64 * b + t for b in range(4) for t in (0, 55, 56, 63)]
+    pieces = [rng.bytes(n) for n in edge]
+    for align, skew in ((16, 0), (4, 4), (1, 1)):
+        args = ragged_inputs(pieces, align, skew)
+        errs.append(hold(f"edge rows align {align}", sha256_ragged(*args),
+                         sha256_rows_ref(*args), pieces))
+        checks.append(f"ragged rows of 0-3 blocks + 0/55/56/63 B, align {align} skew {skew}")
+    for n in edge:
+        rows = torch.from_numpy(rng.integers(0, 256, (33, n), dtype=np.uint8)).to(dev)
+        errs.append(hold(f"uniform 33 x {n}", sha256_uniform(rows), sha256_uniform_ref(rows),
+                         [bytes(r) for r in rows.cpu().numpy()]))
+    checks.append("uniform 33 rows of each edge length")
+    # Rows that end at the last byte of an exact-size tensor in a segment of
+    # its own (compute-sanitizer does not run on the card machine; a read
+    # past the end must fault here or not happen).
+    torch.cuda.empty_cache()
+    exact = torch.from_numpy(rng.integers(0, 256, 16 * MiB, dtype=np.uint8)).to(dev)
+    host_exact = exact.cpu().numpy().tobytes()
+    ends = [64, 124, 55, 4096, 16 * KiB + 63, 4 * MiB]
+    offs = torch.tensor([16 * MiB - n for n in ends], device=dev)
+    lens = torch.tensor(ends, device=dev)
+    tails = [host_exact[16 * MiB - n :] for n in ends]
+    errs.append(hold("rows ending at the tensor's end", sha256_ragged(exact, offs[:5], lens[:5]),
+                     sha256_rows_ref(exact, offs[:5], lens[:5]), tails[:5]))
+    hold("4 MiB row ending at the tensor's end", sha256_ragged(exact, offs[5:], lens[5:]),
+         None, tails[5:])
+    hold("4 x 4 MiB uniform rows filling the tensor", sha256_uniform(exact.view(4, 4 * MiB)),
+         None, [host_exact[i * 4 * MiB : (i + 1) * 4 * MiB] for i in range(4)])
+    checks.append("rows ending at the last byte of an exact 16 MiB tensor "
+                  "(64, 124, 55, 4096, 16 KiB + 63 B vs plain; 4 MiB and 4 x 4 MiB uniform vs hashlib)")
+    del exact
 
     # The main path's row counts, at a length the plain version can run.
     cmp_rows = torch.from_numpy(rng.integers(0, 256, (64, 16 * KiB), dtype=np.uint8)).to(dev)
@@ -436,6 +645,15 @@ def main() -> int:
         raise AssertionError(f"main path skipped a kernel: {main_launches}")
 
     # -- 5. batch: 1024 x 4 MiB on the device --------------------------------
+    def sha_leg(kernel, ms, blocks, longest, nbytes):
+        """A SHA-256 launch's time beside its bounds, and its cycles a block
+        of the longest row at the SM clock read right after it."""
+        clock = card.sm_clock_mhz()
+        b = card.sha_bound(kernel, blocks, longest, nbytes)
+        return {"ms": ms, **b, "share_of_bound": b["bound_ms"] / ms,
+                "share_of_chain_bound": b["chain_bound_ms"] / ms,
+                "cycles_per_block": ms * 1e3 * clock / longest, "sm_clock_mhz": clock}
+
     x = torch.randint(0, 256, (1024, PIECE), dtype=torch.uint8, device=dev)
     words = sha256_uniform(x)  # warm-up
     times = [cuda_ms(lambda: sha256_uniform(x)) for _ in range(3)]
@@ -444,7 +662,7 @@ def main() -> int:
     want = oracle.hash_pieces(host, PIECE)
     if not np.array_equal(words_to_bytes(words), want):
         raise AssertionError("batch: kernel != hashlib")
-    batch_bound_ms, _ = card.bound([PIECE] * 1024)
+    batch_leg = sha_leg(ROWS_KERNEL, batch_ms, *rows_work([PIECE] * 1024))
     hasher = TorchPieceHasher(sub_batch_bytes=1024 * PIECE)
     t0 = time.perf_counter()
     via_hasher = hasher.hash_pieces(host, PIECE)
@@ -454,7 +672,7 @@ def main() -> int:
     emit({"phase": "batch", "pieces": 1024, "piece_length": PIECE,
           "kernel_ms": times, "kernel_ms_median": batch_ms,
           "kernel_gbps": 1024 * PIECE / batch_ms / 1e6,
-          "bound_ms": batch_bound_ms, "share_of_bound": batch_bound_ms / batch_ms,
+          **batch_leg,
           "hasher_seconds": hasher_secs,
           "hasher_gbps": 1024 * PIECE / hasher_secs / 1e9})
 
@@ -464,13 +682,16 @@ def main() -> int:
     win = x[:64]
     sha256_uniform(win)
     uni_main_ms = statistics.median(cuda_ms(lambda: sha256_uniform(win)) for _ in range(3))
+    uni_main = sha_leg(ROWS_KERNEL, uni_main_ms, *rows_work([PIECE] * 64))
     flat = x.view(-1)[: 64 * PIECE]
     offs = torch.arange(64, device=dev) * PIECE
     lens = torch.full((64,), PIECE, device=dev)
     rag_main_ms = statistics.median(
         cuda_ms(lambda: sha256_ragged(flat, offs, lens)) for _ in range(3)
     )
-    main_bound_ms, bound_by = card.bound([PIECE] * 64)
+    rag_main = sha_leg(ROWS_KERNEL, rag_main_ms, *rows_work([PIECE] * 64))
+    emit({"phase": "main_shape", "shape": "64 x 4 MiB",
+          "sha256_uniform": uni_main, "sha256_ragged": rag_main})
     del win, flat
 
     # -- 6. packed: the two kernels of csrc/sha256_packed.cu ------------------
@@ -481,7 +702,9 @@ def main() -> int:
         return int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)).abs().max())
 
     checks, pack_errs, packed_errs = [], [], []
-    for m, p in ((1024, 576), (2048, 64)):
+    # nb = 1, 2 and 8 = NB (the last block hashed is the tensor's last) for
+    # the prefetch's edges.
+    for m, p in ((1024, 576), (2048, 64), (1024, 64), (1024, 128), (1024, 512)):
         rows = torch.from_numpy(rng.integers(0, 256, (m, p), dtype=np.uint8)).to(dev)
         got = pack_tiles_device(rows, p // 64)
         pack_errs.append(word_err(got, pack_tiles_ref(rows, p // 64)))
@@ -535,16 +758,12 @@ def main() -> int:
     pack_bound_ms, pack_bound_by = card.bound_of(
         1024 * nb * 16, 1024 * PIECE + 1024 * nbp * 64  # byte swaps; read P, write NB * 64
     )
-    packed_bound_ms, packed_bound_by = card.bound_of(
-        1024 * (nb + 1) * OPS_PER_BLOCK_PACKED, 1024 * nb * 64 + 1024 * 32
-    )
+    packed_main = sha_leg(PACKED_KERNEL, packed_ms, *packed_work(1024, nb))
     emit({"phase": "packed", "checks": checks, "max_abs_err": 0,
           "pack_1024x4MiB": {"kernel_ms": pack_ms, "plain_ms": pack_plain_ms,
                              "library_ms": pack_library_ms, "bound_ms": pack_bound_ms,
                              "gbps": 2 * 1024 * PIECE / pack_ms / 1e6},
-          "packed_1024x4MiB": {"kernel_ms": packed_ms, "bound_ms": packed_bound_ms,
-                               "share_of_bound": packed_bound_ms / packed_ms,
-                               "gbps": 1024 * PIECE / packed_ms / 1e6},
+          "packed_1024x4MiB": {**packed_main, "gbps": 1024 * PIECE / packed_ms / 1e6},
           "packed_1024x16KiB": {"kernel_ms": packed16_ms, "plain_ms": packed_plain_ms}})
     del x, pk, words
     torch.cuda.empty_cache()
@@ -850,15 +1069,15 @@ def main() -> int:
         """Each leg of a decomposition: ms, GB/s of input, bound."""
         m, p = r["pieces"], r["piece_len"]
         nb = p // 64
+        t_ms, t_by = card.bound_of(m * p // 2, m * p + m * 32)  # bswap + xor a word
         bounds = {
-            "transpose_only": card.bound_of(m * p // 2, m * p + m * 32),  # bswap + xor a word
-            "natural": card.bound([p] * m),
-            "rounds_only_packed": card.bound_of(m * (nb + 1) * OPS_PER_BLOCK_PACKED,
-                                                m * p + m * 32),
+            "transpose_only": {"bound_ms": t_ms, "bound_by": t_by},
+            "natural": card.sha_bound(ROWS_KERNEL, *rows_work([p] * m)),
+            "rounds_only_packed": card.sha_bound(PACKED_KERNEL, *packed_work(m, nb)),
         }
-        return {name: {"ms": r[f"{name}_ms"], "gbps": r[f"{name}_gbps"], "bound_ms": b,
-                       "bound_by": by, "share_of_bound": b / r[f"{name}_ms"]}
-                for name, (b, by) in bounds.items()}
+        return {name: {"ms": r[f"{name}_ms"], "gbps": r[f"{name}_gbps"], **b,
+                       "share_of_bound": b["bound_ms"] / r[f"{name}_ms"]}
+                for name, b in bounds.items()}
 
     # A warm-up and REPS timed launches a leg, one pack, no ragged hash.
     expect = {"sha256_uniform": REPS + 1, "sha256_ragged": 0, "pack_tiles_device": 1,
@@ -892,19 +1111,27 @@ def main() -> int:
     emit({"phase": "relayout", "checks": checks, "max_abs_err": t_err})
 
     print(card.name_power, flush=True)
+    def sha_entry(leg, kernel):
+        """A SHA-256 entry's bounds, and its per-block loop as built."""
+        return {"bound_ms": leg["bound_ms"], "bound_by": leg["bound_by"],
+                "chain_bound_ms": leg["chain_bound_ms"],
+                "throughput_bound_ms": leg["throughput_bound_ms"],
+                "sass_per_block": sha_sass[kernel], "cycles_per_block": leg["cycles_per_block"]}
+
     common = {"route": "cuda", "source": "kraken_tpu_torch/csrc/sha256.cu",
-              "max_abs_err": max_abs_err, "bound_ms": main_bound_ms,
-              "bound_by": bound_by, "library_ms": None, "shape": "64 x 4 MiB",
+              "max_abs_err": max_abs_err, "library_ms": None, "shape": "64 x 4 MiB",
               "plain_shape": "64 x 16 KiB (+1 x 12,345 B ragged)"}
     emit({"kernels": [
         {"name": "sha256_uniform", **common,
          "replaces": "kraken_tpu/ops/sha256_pallas.py:199",
          "launches": main_launches["sha256_uniform"], "ms": uni_main_ms,
-         "plain_ms": uni_plain_ms, "ms_at_plain_shape": uni_ms},
+         "plain_ms": uni_plain_ms, "ms_at_plain_shape": uni_ms,
+         **sha_entry(uni_main, ROWS_KERNEL)},
         {"name": "sha256_ragged", **common,
          "replaces": "kraken_tpu/ops/sha256.py:140",
          "launches": main_launches["sha256_ragged"], "ms": rag_main_ms,
-         "plain_ms": rag_plain_ms, "ms_at_plain_shape": rag_ms},
+         "plain_ms": rag_plain_ms, "ms_at_plain_shape": rag_ms,
+         **sha_entry(rag_main, ROWS_KERNEL)},
         {"name": "pack_tiles_device", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
          "replaces": "kraken_tpu/ops/sha256_pallas.py:321",
@@ -916,10 +1143,10 @@ def main() -> int:
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
          "replaces": "kraken_tpu/ops/sha256_pallas.py:251",
          "launches": ingest_launches["sha256_packed_tiles"], "max_abs_err": 0,
-         "ms": packed_ms, "plain_ms": packed_plain_ms, "bound_ms": packed_bound_ms,
-         "bound_by": packed_bound_by, "library_ms": None,
+         "ms": packed_ms, "plain_ms": packed_plain_ms, "library_ms": None,
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 16 KiB",
-         "ms_at_plain_shape": packed16_ms},
+         "ms_at_plain_shape": packed16_ms,
+         **sha_entry(packed_main, PACKED_KERNEL)},
         {"name": "gear_candidates", "route": "cuda", "source": "kraken_tpu_torch/csrc/gear.cu",
          "replaces": "kraken_tpu/ops/cdc_pallas.py:81",
          "launches": dedup_launches["gear_candidates"], "max_abs_err": gear_err,

@@ -1,7 +1,19 @@
 // SHA-256 compression shared by the kernels of csrc/sha256.cu and
-// csrc/sha256_packed.cu: the round constants, the initial state, and one
-// unrolled compression with a 16-word schedule ring in registers; and the
-// natural kernel's aligned block load, shared with csrc/transpose.cu.
+// csrc/sha256_packed.cu: the round constants, the initial state, the block
+// ring that takes the block load out of a row's chain, and one unrolled
+// compression with a 16-word schedule ring in registers; and the aligned
+// block load of the relayout diagnostic (csrc/transpose.cu), which times
+// the natural kernel's loads as they were before the ring.
+//
+// The compression needs 1,024 ALU-pipe operations a block (64 rounds of 6
+// funnel-shift rotates and 4 three-input logic ops, 48 schedule steps of 6
+// shifts and 2 logic ops) and 360 adds that may go to the ALU or the FMA
+// pipe; one warp's chain of rounds alone is 640 ALU-pipe operations, at
+// least 1,280 clocks a block (chip_smoke.py, SHA_ROUNDS). As built it is
+// ~1,290 ALU-pipe SASS instructions a block, most two-input adds going to
+// the FMA pipe as IMAD. Moving more adds, shifts or rotates to the FMA pipe
+// by hand (IMAD, IMAD.HI with multipliers the compiler cannot see) did not
+// shorten the main path's chain; summing h + K[i] + W[i] apart did.
 //
 // Each .cu file is its own translation unit (no relocatable device code),
 // so everything here has internal linkage and each kernel gets its own
@@ -46,9 +58,9 @@ __device__ __forceinline__ uint32_t bswap(uint32_t x) {
 
 // One 64-byte block of a 16-byte aligned natural row at q, as SHA words:
 // four 128-bit read-only loads, each word byte-swapped to big-endian. The
-// natural hash (csrc/sha256.cu) and the relayout diagnostic
-// (csrc/transpose.cu) both load through here, so the diagnostic's loads
-// are the hash's by construction.
+// relayout diagnostic (csrc/transpose.cu) loads through here: the natural
+// hash's loads as they were before its block ring, at the top of each
+// block.
 __device__ __forceinline__ void load_block_aligned(const uint4* __restrict__ q,
                                                    uint32_t w[16]) {
 #pragma unroll
@@ -60,6 +72,42 @@ __device__ __forceinline__ void load_block_aligned(const uint4* __restrict__ q,
     w[4 * k + 3] = bswap(v.w);
   }
 }
+
+// Asynchronous copies from device memory into shared memory (cp.async),
+// for the block ring below: one 16-byte or 4-byte copy; commit_group closes
+// a thread's batch of copies, and wait_group 1 waits until at most the
+// newest batch is still in flight.
+__device__ __forceinline__ void cp_async16(uint4* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The SHA kernels' block ring: kRing 64-byte slots a thread in shared
+// memory, 16-byte word k of slot s of thread tid at [s][k][tid] (a warp's
+// reads of one k are 512 contiguous bytes). Block i is copied in while
+// block i - 2 is hashed, and read from slot i % kRing after a
+// wait_group 1. The compiler may issue a block's copies anywhere in the
+// loop body (ptxas places them after the rounds, as it does loads into a
+// register buffer), and a whole compression still lies between them and
+// the wait before their block. 24 KiB a block of 128 threads.
+constexpr int kRing = 3;
+
+__device__ __forceinline__ int next_slot(int s) { return s == kRing - 1 ? 0 : s + 1; }
 
 // One compression of the block in w[16] into st[8]. Fully unrolled: every
 // index into w is a constant, so w stays in registers.
@@ -74,8 +122,10 @@ __device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
       const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
       w[i & 15] += s0 + w[(i + 9) & 15] + s1;
     }
-    const uint32_t t1 = h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) +
-                        (g ^ (e & (f ^ g))) + kK[i] + w[i & 15];
+    // h + K[i] + W[i] does not depend on this round's e: summed apart, it
+    // leaves e's chain two adds after Sigma1 and Ch.
+    const uint32_t pre = h + kK[i] + w[i & 15];
+    const uint32_t t1 = pre + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + (g ^ (e & (f ^ g)));
     const uint32_t t2 =
         (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & (b ^ c)) ^ (b & c));
     h = g; g = f; f = e; e = d + t1;

@@ -15,20 +15,27 @@
 // native) hashes here unchanged. On this card the layout coalesces: word j
 // of 32 neighbouring pieces is one contiguous 128-byte line.
 //
-// sha256_packed_kernel -- what bounds it: integer operations. A block
-// costs 1,384 32-bit ALU operations (the 1,400 of csrc/sha256.cu less the
-// 16 byte swaps the packed words no longer need) against 64 bytes read:
-// by the data sheet 132 SMs x 64 INT32 lanes at 1.98 GHz issue ~16.7 T
-// ops/s, an input rate of ~774 GB/s against 3.35 TB/s of memory. What the
-// design does: one thread per piece (a piece's blocks form a dependency
-// chain), state and a 16-word schedule ring in registers, the unrolled
-// compression of csrc/sha256_common.cuh; each of the 16 loads of a block
-// is one coalesced line per warp; no byte swap; the padding block (0x80,
-// zeros, the bit length of nb * 64 bytes -- the same for every piece) is
-// built in registers after the last data block, and blocks nb..NB-1 are
-// never read; digests are written in piece order. Like csrc/sha256.cu it
-// fills T * 8 blocks of 128 threads, so a 1024-piece tile runs on 8 SMs:
-// filling the card is the callers' batch size.
+// sha256_packed_kernel -- what bounds it: as sha256_rows_kernel
+// (csrc/sha256.cu), integer issue, by regime, with no byte swaps: 1,024
+// ALU-only operations and 360 adds a block. With every SM full the ALU
+// pipe bounds it (8.48 ms at 132 x 1024 pieces of 64 KiB; it takes
+// ~11.5 ms); a 1024-piece tile runs on 8 SMs, one warp a sub-partition,
+// where a piece's chain of rounds bounds it: 2 x 640 clocks a block,
+// 42.4 ms for the 65,537 blocks of a 4 MiB piece (it takes ~98 ms). As
+// built, a block of its loop is 1,472 SASS instructions: 1,287 on the ALU
+// pipe, 138 on the FMA pipe, 47 others (chip_smoke.py reads them from
+// cuobjdump -sass). What the design does: one thread per
+// piece (a piece's blocks form a dependency chain), state and a 16-word
+// schedule ring in registers, the unrolled compression of
+// sha256_common.cuh; each block is sixteen 4-byte copies, one coalesced
+// line per warp each, into the shared-memory ring two blocks ahead of the
+// rounds, so no load latency is left in the chain (loading at the top of
+// the loop cost ~1,800 clocks a block of 4,800); no byte swap; the padding
+// block (0x80, zeros, the bit length of nb * 64 bytes -- the same for every
+// piece) is built in registers after the last data block, and blocks
+// nb..NB-1 are never read; digests are written in piece order. Like
+// csrc/sha256.cu it fills T * 8 blocks of 128 threads: filling the card is
+// the callers' batch size.
 //
 // pack_tiles_kernel -- what bounds it: bytes. It reads P bytes and writes
 // NB * 64 bytes per piece, with no arithmetic beyond byte swaps. What the
@@ -49,8 +56,9 @@
 namespace {
 
 constexpr int64_t kTile = 1024;  // pieces per packed tile
+constexpr int kThreads = 128;    // threads a block
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
 sha256_packed_kernel(const uint32_t* __restrict__ packed, int64_t n_pieces,
                      int64_t nb_out, int64_t nb, int32_t* __restrict__ out) {
   const int64_t piece = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -60,10 +68,46 @@ sha256_packed_kernel(const uint32_t* __restrict__ packed, int64_t n_pieces,
 
   uint32_t st[8];
   sha256_init(st);
+  // The block ring of sha256_common.cuh, two blocks ahead, word j of a
+  // block at word j % 4 of [slot][j / 4][tid]. Blocks nb..NB-1 are never
+  // read.
+  __shared__ uint4 ring[kRing][4][kThreads];
+  const int tid = threadIdx.x;
   uint32_t w[16];
-  for (int64_t kb = 0; kb < nb; ++kb, p += 16 * kTile) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) w[j] = __ldg(p + j * kTile);
+  for (int s = 0; s < 2; ++s) {
+    if (s < nb) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        cp_async4(reinterpret_cast<uint32_t*>(&ring[s][j / 4][tid]) + j % 4,
+                  p + (16 * s + j) * kTile);
+      }
+    }
+    cp_async_commit();
+  }
+  p += 32 * kTile;
+  int cur = 0, ahead = 2;
+  for (int64_t kb = 0; kb < nb; ++kb) {
+    cp_async_wait_all_but_newest();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint4 v = ring[cur][k][tid];
+      w[4 * k + 0] = v.x;
+      w[4 * k + 1] = v.y;
+      w[4 * k + 2] = v.z;
+      w[4 * k + 3] = v.w;
+    }
+    if (kb + 2 < nb) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        cp_async4(reinterpret_cast<uint32_t*>(&ring[ahead][j / 4][tid]) + j % 4,
+                  p + j * kTile);
+      }
+    }
+    cp_async_commit();
+    p += 16 * kTile;
+    cur = next_slot(cur);
+    ahead = next_slot(ahead);
     compress(st, w);
   }
 
@@ -117,9 +161,8 @@ extern "C" {
 int sha256_packed_launch(const void* packed, int64_t n_pieces, int64_t nb_out,
                          int64_t nb, void* out, void* stream) {
   if (n_pieces > 0) {
-    const int threads = 128;
-    const int64_t blocks = (n_pieces + threads - 1) / threads;
-    sha256_packed_kernel<<<(unsigned)blocks, threads, 0,
+    const int64_t blocks = (n_pieces + kThreads - 1) / kThreads;
+    sha256_packed_kernel<<<(unsigned)blocks, kThreads, 0,
                            (cudaStream_t)stream>>>(
         (const uint32_t*)packed, n_pieces, nb_out, nb, (int32_t*)out);
   }

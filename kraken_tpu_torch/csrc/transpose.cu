@@ -23,11 +23,12 @@
 // neighbouring threads a piece length apart (uncoalesced: each load uses
 // 16 of a 32-byte sector). So this kernel runs one thread per piece, 128
 // threads a block, as sha256_rows_launch does; loads each 64-byte block
-// through the same load_block_aligned (sha256_common.cuh); XORs the 16
-// words into 8 register accumulators; and keeps the block loop rolled
-// (#pragma unroll 1), as the natural kernel's loop is around its unrolled
-// compression, so the compiler cannot batch more loads in flight than the
-// natural kernel has. The 8 words are stored word-major, so neighbouring
+// through load_block_aligned (sha256_common.cuh), the natural kernel's
+// block load before its block ring moved the loads out of the chain; XORs
+// the 16 words into 8 register accumulators; and keeps the block loop
+// rolled (#pragma unroll 1), as the natural kernel's loop is around its
+// unrolled compression, so the compiler cannot batch more loads in flight
+// than one block's. The 8 words are stored word-major, so neighbouring
 // threads write neighbouring addresses.
 
 #include <cuda_runtime.h>
