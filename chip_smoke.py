@@ -11,9 +11,9 @@ printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
 1. ``build``   -- the kernel library, the compiler's register report, the
-   gear kernel's SASS instruction count, the SHA-256 kernels' per-block
-   SASS counts by pipe (below), and which host packer was built (``c``, or
-   ``numpy`` without a compiler).
+   gear kernel's SASS instruction count and its run body a byte by pipe,
+   the SHA-256 kernels' per-block SASS counts by pipe (below), and which
+   host packer was built (``c``, or ``numpy`` without a compiler).
 2. ``kernels`` -- the SHA-256 kernel of ``csrc/sha256.cu`` against its
    plain PyTorch version and hashlib,
    on the card: lengths 0..257 (16-byte aligned and skewed starts, so all
@@ -61,15 +61,20 @@ without a result:
    leave ``ingest_fallbacks_total`` unmoved, and launch exactly the
    kernels stated in ``INGEST_RUNS``.
 8. ``cdc``     -- the gear kernel of ``csrc/gear.cu`` against its plain
-   PyTorch version on the card, mask for mask: one 64 MiB window with a
-   ragged tail from the blob's offset 0, one with 31 bytes of history;
-   a blob of two windows and a ragged tail whose first 31 bytes hash onto
-   the loose mask with zero history (the candidate lists of the windowed
-   kernel route against one whole-blob plain pass); and a 1 GiB blob,
-   whose cuts through the kernel route must equal the sequential C
-   chunker's (``native.cdc_chunk_native``). The kernel is timed at the
-   main path's window beside the plain pass and one PyTorch expression
-   (the doubling in int32 with wraparound).
+   PyTorch version on the card, position for position: one 64 MiB window
+   with a ragged tail from the blob's offset 0, one with 31 bytes of
+   history, a 1 MiB window at mask 0 (every position a candidate) and one
+   at ``CDCParams(64, 256, 1024)``; a blob of two windows and a ragged
+   tail whose first 31 bytes hash onto the loose mask with zero history
+   (the candidate lists of the windowed kernel route against one
+   whole-blob plain pass); and a 1 GiB blob, whose cuts through the
+   kernel route must equal the sequential C chunker's
+   (``native.cdc_chunk_native``), with the window path's stage split
+   summed over windows (``cdc_cuda.STAGES``) and the host's cut
+   selection. The kernel is timed at the main path's window beside its
+   bound, the plain pass and one PyTorch expression (the doubling in int32
+   with wraparound, then ``torch.nonzero``); the copy into pinned staging
+   is timed at one thread and at ``cdc_cuda.COPY_THREADS``.
 9. ``dedup``   -- the dedup plane's main path at BASELINE.json config 4's
    chunking (default ``CDCParams``, 64 KiB average chunks): a fresh
    ``CAStore`` and ``DedupIndex(store)``, which takes the card and the
@@ -107,9 +112,9 @@ wrapper must have launched on its path. Then the card's name and power limit, a
 
 The bound of a launch is the larger of its bytes over the card's memory
 rate (each input read once, each output written once) and its work over
-the card's rate for it. The pack moves bytes; the gear pass needs
-``GEAR_OPS_PER_BYTE`` integer operations a byte (over SMs x 64 INT32 lanes
-x the maximum SM clock) against 2 bytes moved. A SHA-256 kernel's work is
+the card's rate for it. The pack moves bytes. The gear pass's work a byte
+is ``GEAR_WORK``, by pipe as below, with every SM full, against the window
+read once and the codes written. A SHA-256 kernel's work is
 what the function needs a block (``SHA_ROUNDS``, ``SHA_SCHEDULE``,
 ``SHA_BSWAP``), each operation in its least Hopper form and by the pipes
 it can issue to: rotates, shifts and logic only to the integer ALU pipe,
@@ -119,9 +124,9 @@ two pipes' lanes and issue slots; its chain bound runs the longest row's
 run on another warp), each ALU instruction holding its 16-lane pipe 2
 clocks. The bound is the largest of the two and the byte bound: the chain
 at the main path's 64-row launches, the throughput with the card full.
-The build phase prints each kernel's per-block loop as built, by pipe
-(``cuobjdump -sass``), beside the bound: how far the build is from the
-function's work.
+The build phase prints each SHA-256 kernel's per-block loop and the gear
+kernel's run body a byte as built, by pipe (``cuobjdump -sass``), beside
+the bound: how far the build is from the function's work.
 """
 
 from __future__ import annotations
@@ -161,10 +166,14 @@ WARP = 32
 ALU_LANES_PER_SM = 64
 FMA_LANES_PER_SM = 64
 DISPATCH_PER_SM = 4  # warp instructions issued a clock, one per sub-partition
+# Shared memory answers 32 four-byte banks a clock an SM: one conflict-free
+# warp-wide 32-bit load (the CUDA C++ Programming Guide, "Shared Memory",
+# compute capability 9.0).
+LDS_LANES_PER_SM = 32
 SUBPARTITIONS = 4
 ALU_OPCODES = frozenset((
     "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "ISETP",
-    "ICMP", "SEL", "LEA", "MOV", "IABS", "IMNMX", "VIADD", "VIMNMX", "BMSK",
+    "ICMP", "SEL", "LEA", "MOV", "IABS", "IMNMX", "VIADD", "VIMNMX", "VIMNMX3", "BMSK",
     "SGXT", "PLOP3", "P2R", "R2P",
 ))
 FMA_OPCODES = frozenset(("IMAD", "IMUL", "FFMA", "FMUL", "FADD"))
@@ -195,10 +204,20 @@ TAIL = 12_345
 # The relayout decomposition's full-card shape: 132 tiles of 1024 pieces,
 # 1,024 pieces an SM, chip_sha256_sweep.py's top point.
 FULL_TILES = 132
-# Integer operations of the gear pass a byte, in the rolling form: the gear
-# map 6 (multiply-add, shift, xor, multiply, shift, xor), one shift-add, and
-# two mask tests of 2 (and, compare).
-GEAR_OPS_PER_BYTE = 6 + 1 + 2 * 2
+# The gear pass's work a byte, each operation once in its least Hopper form
+# and by the pipes it can issue to, as for SHA-256. The gear map is a
+# lookup in a shared-memory table of its 256 values with a copy in every
+# bank: the byte's extraction (PRMT) on the ALU pipe, its table address
+# (LEA or IMAD) on either, the load on the shared-memory pipe ("lds"). The
+# rolling form's shift-add (h << 1) + g on either. The mask tests: nested
+# top-bit masks let h hit either mask only if h <= ~mask_loose, so an
+# unsigned min over a run serves both, a 3-input min (VIMNMX3) a half on
+# the ALU pipe. (The map computed arithmetically -- two shifts and two xors
+# only on the ALU pipe, two multiplies only on the FMA pipe -- costs more:
+# tests/test_torch_sass.py.)
+GEAR_WORK = {"alu": 1.5, "either": 2, "lds": 1}
+GEAR_KERNEL = "gear_candidates_kernel"
+GEAR_RUN = 32  # positions a lane's run: a warp instruction of the run's body a 1 KiB step
 # The ingest runs: (pack mode, blob, window bytes, the launches each wrapper
 # must make). "config 1" is the 1 GiB blob of 4 MiB pieces: 16 windows of
 # 16 pieces, one uniform launch each. "tile" is 1024 pieces of 4 MiB and a
@@ -302,13 +321,27 @@ def chain_cycles(work: dict[str, int]) -> int:
     return max(hold * work["alu"], work["alu"] + work["either"])
 
 
-def throughput_cycles(work: dict[str, int]) -> float:
-    """Least SM clocks a row's block of this work costs when the SM is
-    full: the ALU-only operations over the ALU pipe's lanes, all of them
-    over both pipes' lanes and over the SM's issue slots."""
-    ops = work["alu"] + work["either"]
-    return max(work["alu"] / ALU_LANES_PER_SM, ops / (ALU_LANES_PER_SM + FMA_LANES_PER_SM),
-               ops / (DISPATCH_PER_SM * WARP))
+def throughput_cycles(work: dict[str, float]) -> float:
+    """Least SM clocks this work costs when the SM is full: the ALU-only
+    operations over the ALU pipe's lanes, the FMA-only ones (``fma``, none
+    if absent) over the FMA pipe's, the arithmetic over both pipes' lanes,
+    shared-memory loads (``lds``, none if absent) over the banks, and all
+    of them over the SM's issue slots."""
+    fma, lds = work.get("fma", 0), work.get("lds", 0)
+    arith = work["alu"] + fma + work["either"]
+    return max(work["alu"] / ALU_LANES_PER_SM, fma / FMA_LANES_PER_SM,
+               arith / (ALU_LANES_PER_SM + FMA_LANES_PER_SM), lds / LDS_LANES_PER_SM,
+               (arith + lds) / (DISPATCH_PER_SM * WARP))
+
+
+def gear_bounds(positions: int, nbytes: float, sms: int, clock_hz: float) -> dict:
+    """Least time (ms) for the gear pass over ``positions`` bytes with
+    ``nbytes`` moved: the larger of ``GEAR_WORK`` a byte with every SM
+    full and the bytes over the memory rate (the bytes, at any size)."""
+    ops = positions * throughput_cycles(GEAR_WORK) / sms / clock_hz * 1e3
+    byt = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops, byt), "bound_by": "bytes" if byt >= ops else "operations",
+            "ops_bound_ms": ops, "bytes_bound_ms": byt}
 
 
 def sha_bounds(kernel: str, blocks: int, longest: int, nbytes: float, sms: int,
@@ -339,6 +372,64 @@ def packed_work(pieces: int, nb: int) -> tuple[int, int, int]:
     pieces of ``nb`` blocks: the data blocks and a padding block each, the
     data read and the digests written."""
     return pieces * (nb + 1), nb + 1, pieces * nb * 64 + pieces * 32
+
+
+_BRANCH = re.compile(r"\bBRA\b.*0x([0-9a-f]+)")
+
+
+def gear_run_body(sass: str, kernel: str = GEAR_KERNEL) -> list[str]:
+    """The instructions a warp issues for one run of ``GEAR_RUN`` positions a
+    lane on the common path: the kernel's first loop (lowest start) that
+    loads 16 bytes a lane (``LDG...128``), less the rare path inside it --
+    the code that a forward branch to a target inside the loop skips and
+    that holds the atomic."""
+    ins = sass_function(sass, kernel)
+    loops = []
+    for addr, text in ins:
+        m = _BRANCH.search(text)
+        if m and int(m.group(1), 16) <= addr:
+            body = [(a, t) for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            if any(opcode(t).startswith("LDG") and ".128" in opcode(t) for _, t in body):
+                loops.append(body)
+    if not loops:
+        raise ValueError(f"{kernel}'s SASS has no loop of 16-byte loads")
+    body = min(loops, key=lambda lp: lp[0][0])
+    for addr, text in body:
+        m = _BRANCH.search(text)
+        if m and addr < int(m.group(1), 16) <= body[-1][0]:
+            target = int(m.group(1), 16)
+            if any(addr < a < target and opcode(t).startswith(("ATOM", "RED"))
+                   for a, t in body):
+                body = [(a, t) for a, t in body if not addr < a < target]
+                break
+    return [t for _, t in body]
+
+
+def gear_sass_per_byte(sass: str) -> dict[str, float]:
+    """The gear kernel's run body as built, by pipe, a byte: warp
+    instructions a 1 KiB step, each lane's ``GEAR_RUN`` positions."""
+    return {k: v / GEAR_RUN for k, v in pipe_counts(gear_run_body(sass)).items()}
+
+
+# Clocks the card spins before a queued timing (~2 ms at 1.98 GHz): longer
+# than the host takes to enqueue the timed calls.
+SPIN_CYCLES = 4_000_000
+
+
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device time (ms) a call of ``fn``, over ``reps`` calls enqueued behind
+    a spin of the card, so that a short launch is timed without the host's
+    time to issue it (which ``cuda_ms`` counts when the card is idle)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cuda_ms(fn) -> float:
@@ -425,9 +516,10 @@ def main() -> int:
     )
     from kraken_tpu_torch import CDCParams, DedupIndex, chunk
     from kraken_tpu_torch.bench.transpose import REPS, decompose
+    from kraken_tpu_torch.ops import cdc as cdc_mod
     from kraken_tpu_torch.ops import cdc_cuda, cuda_lib, sha256_cuda, transpose_cuda
-    from kraken_tpu_torch.ops.cdc_cuda import LEAD, candidate_indices, gear_mask, padded
-    from kraken_tpu_torch.ops.cdc_ref import gear_candidates_ref, gear_mask_ref
+    from kraken_tpu_torch.ops.cdc_cuda import LEAD, candidate_indices, gear_candidates, padded
+    from kraken_tpu_torch.ops.cdc_ref import gear_candidates_ref, gear_candidates_window_ref
     from kraken_tpu_torch.ops.sha256_cuda import (
         pack_tiles_device, sha256_packed_tiles, sha256_ragged, sha256_uniform,
     )
@@ -457,14 +549,11 @@ def main() -> int:
     ]
     sass = card.sass
     sha_sass = {k: card.sass_per_block(k) for k in (ROWS_KERNEL, PACKED_KERNEL)}
-    # The gear kernel is unrolled and loop-free but for its 5-lap load
-    # loop: per position, its instructions times a block's 256 threads over
-    # its 4,096 positions (the load loop counted once: a lower bound).
-    gear_sass = sass_instructions(sass, "gear_mask_kernel")
+    gear_sass = gear_sass_per_byte(sass)
     emit({"phase": "build", "seconds": build_secs,
           "library": str(lib.relative_to(REPO)), "ptxas": ptxas,
-          "gear_sass_instructions": gear_sass,
-          "gear_sass_per_byte": gear_sass * 256 / cdc_cuda.TILE,
+          "gear_sass_instructions": sass_instructions(sass, GEAR_KERNEL),
+          "gear_sass_per_byte": gear_sass,
           "sha_sass_per_block": sha_sass,
           "host_packer": packer})
 
@@ -844,29 +933,57 @@ def main() -> int:
     win = cdc_cuda.WINDOW_BYTES
     checks, gear_errs = [], []
 
-    def mask_err(got, want):
-        """max |kernel - plain| over the mask bytes (0 when equal)."""
-        return 0 if torch.equal(got, want) else int((got.int() - want.int()).abs().max())
+    def cand_err(got, want):
+        """Strict and loose positions in one list and not the other (0 when
+        the lists are equal; at least 1 when they differ)."""
+        if all(np.array_equal(g, w) for g, w in zip(got, want)):
+            return 0
+        return max(1, sum(int(np.setxor1d(g, w).size) for g, w in zip(got, want)))
 
-    for n, hist in ((win - TAIL, 0), (win, 31)):
+    # Four windows, kernel against plain, position for position: the main
+    # path's two (the blob's first, ragged; a whole one after it), a 1 MiB
+    # window at mask 0 (every position a candidate, the code buffer full)
+    # and one at dense parameters (loose candidates ~1 in 64).
+    dense = CDCParams(64, 256, 1024)
+    for n, hist, masks, label in (
+        (win - TAIL, 0, (ms_, ml_), "default"), (win, 31, (ms_, ml_), "default"),
+        (MiB, 31, (0, 0), "mask 0"),
+        (MiB, 17, (dense.mask_strict, dense.mask_loose), "CDCParams(64, 256, 1024)"),
+    ):
         buf = torch.from_numpy(rng.integers(0, 256, LEAD + padded(n), dtype=np.uint8)).to(dev)
-        gear_errs.append(mask_err(gear_mask(buf, n, hist, ms_, ml_),
-                                  gear_mask_ref(buf, n, hist, ms_, ml_, LEAD)))
-        checks.append(f"one window of {n} B, {hist} B of history, vs plain")
-    # The main path's launch: a whole 64 MiB window after the first.
-    gear_mask(buf, win, 31, ms_, ml_)  # warm
-    gear_ms = statistics.median(cuda_ms(lambda: gear_mask(buf, win, 31, ms_, ml_))
-                                for _ in range(3))
+        got = gear_candidates(buf, n, hist, *masks)
+        want = gear_candidates_window_ref(buf, n, hist, *masks, LEAD)
+        gear_errs.append(cand_err(got, want))
+        if masks == (0, 0) and not len(want[0]) == len(want[1]) == n:
+            raise AssertionError("cdc: mask 0 did not make every position a candidate")
+        checks.append(f"one window of {n} B, {hist} B of history, {label} masks: "
+                      f"{len(want[0])} strict, {len(want[1])} loose, vs plain")
+        if n == win:
+            wbuf = buf
+    del buf
+    # The main path's launch: a whole 64 MiB window after the first. A
+    # launch takes less time on the card than the host takes to issue it,
+    # so it is timed queued (a median of 3 runs of 10 launches), and beside
+    # it as ``cuda_ms`` times every other kernel, on an idle card.
+    out = torch.empty(win + 1, dtype=torch.int32, device=dev)
+    cdc_cuda.launch(wbuf, win, 31, ms_, ml_, out)  # warm
+    gear_ms = statistics.median(
+        queued_ms(lambda: cdc_cuda.launch(wbuf, win, 31, ms_, ml_, out)) for _ in range(3))
     gear_clock_mhz = card.sm_clock_mhz()
-    gear_plain_ms = cuda_ms(lambda: gear_mask_ref(buf, win, 31, ms_, ml_, LEAD))
+    gear_idle_ms = statistics.median(
+        cuda_ms(lambda: cdc_cuda.launch(wbuf, win, 31, ms_, ml_, out)) for _ in range(3))
+    gear_codes = int(out[0])
+    del out
+    gear_plain_ms = cuda_ms(lambda: gear_candidates_window_ref(wbuf, win, 31, ms_, ml_, LEAD))
 
     def i32(v):
         return v - (1 << 32) if v >= 1 << 31 else v
 
     def library_gear():
-        """One PyTorch expression for the window's masks: the gear map and
-        the log-doubling in int32 with wraparound, then both mask tests."""
-        x = buf[LEAD - 31 : LEAD + win].to(torch.int32)
+        """One PyTorch expression for the window's candidates: the gear map
+        and the log-doubling in int32 with wraparound, both mask tests,
+        then ``torch.nonzero`` of each."""
+        x = wbuf[LEAD - 31 : LEAD + win].to(torch.int32)
         x = (x + 1) * i32(0x9E3779B1)
         x = x ^ ((x >> 15) & 0x1FFFF)
         x = x * i32(0x85EBCA77)
@@ -876,13 +993,35 @@ def main() -> int:
             h = h + (torch.cat([h.new_zeros(step), h[:-step]]) << step)
             step *= 2
         h = h[31:]
-        return ((h & i32(ms_)) == 0).to(torch.uint8) | (((h & i32(ml_)) == 0).to(torch.uint8) << 1)
+        return (torch.nonzero((h & i32(ms_)) == 0).squeeze(1),
+                torch.nonzero((h & i32(ml_)) == 0).squeeze(1))
 
-    if mask_err(library_gear(), gear_mask(buf, win, 31, ms_, ml_)):
+    if cand_err([t.cpu().numpy() for t in library_gear()],
+                gear_candidates(wbuf, win, 31, ms_, ml_)):
         raise AssertionError("the library expression is not the gear pass")
     gear_library_ms = statistics.median(cuda_ms(library_gear) for _ in range(3))
-    gear_bound_ms, gear_bound_by = card.bound_of(win * GEAR_OPS_PER_BYTE, 2 * win + 31)
-    del buf
+    # Bytes: the window and its 31 bytes of history read, the count and the
+    # codes this window's data made written.
+    gear_leg = gear_bounds(win, win + 31 + 4 * (1 + gear_codes), card.sms, card.sm_clock_hz)
+    gear_leg["share_of_bound"] = gear_leg["bound_ms"] / gear_ms
+    del wbuf
+
+    # The copy into pinned staging, which sets the window path's pace once
+    # the rest overlaps: 64 MiB from host memory, one thread and
+    # COPY_THREADS (a median of 3 each).
+    src = rng.integers(0, 256, win, dtype=np.uint8)
+    dst = torch.empty(win, dtype=torch.uint8, pin_memory=True).numpy()
+    copy_gbps, keep = {}, cdc_cuda.COPY_THREADS
+    for threads in sorted({1, keep}):
+        cdc_cuda.COPY_THREADS = threads
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cdc_cuda._copy(dst, src)
+            secs.append(time.perf_counter() - t0)
+        copy_gbps[threads] = win / statistics.median(secs) / 1e9
+    cdc_cuda.COPY_THREADS = keep
+    del src, dst
 
     # Two windows and a ragged tail, planted: the first 31 bytes hash onto
     # the loose mask with zero history (the seeds are searched on the card
@@ -919,9 +1058,22 @@ def main() -> int:
         native_cuts[name] = (cuts.tolist(), time.perf_counter() - t0)
         return native_cuts[name][0]
 
+    select = {"seconds": 0.0}
+    host_select = cdc_mod._host_select_cuts
+
+    def timed_select(*args):
+        t0 = time.perf_counter()
+        cuts = host_select(*args)
+        select["seconds"] += time.perf_counter() - t0
+        return cuts
+
+    cdc_mod._host_select_cuts = timed_select
+    cdc_cuda.reset_stages()
     t0 = time.perf_counter()
     cuts_a = chunk(blob_a, params)
     chunk_secs = time.perf_counter() - t0
+    chunk_stages = {**cdc_cuda.STAGES, "select_cuts": select["seconds"]}
+    cdc_mod._host_select_cuts = host_select
     if cuts_a != c_cuts("A", blob_a):
         raise AssertionError("cdc: 1 GiB kernel-route cuts != the C chunker's")
     checks.append(f"1 GiB: {len(cuts_a)} cuts through the kernel route == C chunker")
@@ -930,11 +1082,13 @@ def main() -> int:
         raise AssertionError(f"cdc: gear kernel != plain version (max abs err {gear_err})")
     emit({"phase": "cdc", "checks": checks, "max_abs_err": gear_err,
           "window_64MiB": {"kernel_ms": gear_ms, "plain_ms": gear_plain_ms,
-                           "library_ms": gear_library_ms, "bound_ms": gear_bound_ms,
-                           "bound_by": gear_bound_by,
-                           "share_of_bound": gear_bound_ms / gear_ms,
+                           "library_ms": gear_library_ms, **gear_leg, "codes": gear_codes,
+                           "ms_launched_on_an_idle_card": gear_idle_ms,
+                           "sass_per_byte": gear_sass,
                            "gbps": win / gear_ms / 1e6, "sm_clock_mhz": gear_clock_mhz},
+          "host_copy_64MiB_gbps": copy_gbps,
           "chunk_1GiB": {"seconds": chunk_secs, "gbps": GiB / chunk_secs / 1e9,
+                         "stage_seconds": chunk_stages, "windows": -(-GiB // win),
                          "c_chunker_seconds": native_cuts["A"][1],
                          "c_chunker_gbps": GiB / native_cuts["A"][1] / 1e9}})
 
@@ -1147,11 +1301,14 @@ def main() -> int:
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 16 KiB",
          "ms_at_plain_shape": packed16_ms,
          **sha_entry(packed_main, PACKED_KERNEL)},
-        {"name": "gear_candidates", "route": "cuda", "source": "kraken_tpu_torch/csrc/gear.cu",
+        {"name": "gear_candidates", "kernel": GEAR_KERNEL, "route": "cuda",
+         "source": "kraken_tpu_torch/csrc/gear.cu",
          "replaces": "kraken_tpu/ops/cdc_pallas.py:81",
          "launches": dedup_launches["gear_candidates"], "max_abs_err": gear_err,
-         "ms": gear_ms, "plain_ms": gear_plain_ms, "bound_ms": gear_bound_ms,
-         "bound_by": gear_bound_by, "library_ms": gear_library_ms,
+         "ms": gear_ms, "plain_ms": gear_plain_ms, "bound_ms": gear_leg["bound_ms"],
+         "bound_by": gear_leg["bound_by"], "ops_bound_ms": gear_leg["ops_bound_ms"],
+         "bytes_bound_ms": gear_leg["bytes_bound_ms"], "library_ms": gear_library_ms,
+         "sass_per_byte": gear_sass,
          "shape": "one 64 MiB window", "plain_shape": "one 64 MiB window"},
         # A diagnostic on no path of the system: the main path launches it
         # no time; each decomposition's own launches stand beside.

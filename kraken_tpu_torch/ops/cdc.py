@@ -31,6 +31,7 @@ bit.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 
 import numpy as np
@@ -104,6 +105,26 @@ def _top_mask(nbits: int) -> int:
     return ((1 << nbits) - 1) << (32 - nbits) & 0xFFFFFFFF
 
 
+def check_masks(mask_s: int, mask_l: int) -> None:
+    """Refuse masks the gear kernel cannot test in one compare: each must be
+    a top-bit mask (:func:`_top_mask`, ``0`` included) and the strict one's
+    bits must contain the loose one's, as :class:`CDCParams` makes them."""
+    for name, mask in (("mask_s", mask_s), ("mask_l", mask_l)):
+        low = (1 << 32) - mask
+        if not 0 <= mask < 1 << 32 or low & (low - 1):
+            raise ValueError(f"{name} must be a mask of high bits of a uint32: {mask:#x}")
+    if mask_s & mask_l != mask_l:
+        raise ValueError(f"mask_s {mask_s:#x} must contain mask_l {mask_l:#x}")
+
+
+def split_codes(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Candidate codes ``pos << 2 | kind`` (bit 0 strict, bit 1 loose), in
+    any order -> the sorted strict and loose positions (int64)."""
+    codes = np.sort(np.asarray(codes, dtype=np.int64))
+    pos = codes >> 2
+    return pos[(codes & 1) != 0], pos[(codes & 2) != 0]
+
+
 # -- pure-Python reference (golden oracle; O(n) python -- tests only) -------
 
 
@@ -152,7 +173,10 @@ def _host_select_cuts(
     > min_size >= _WINDOW past the chunk start, where the 32-byte gear
     window lies entirely inside the current chunk -- so the full-history
     hash of the vector pass equals the restarted hash of the reference.
+    The walk bisects Python lists: a scalar ``np.searchsorted`` costs
+    microseconds a call, and the walk makes two to four calls a chunk.
     """
+    strict, loose = np.asarray(strict_idx).tolist(), np.asarray(loose_idx).tolist()
     cuts: list[int] = []
     start = 0
     while start < n:
@@ -163,15 +187,15 @@ def _host_select_cuts(
         limit = min(remaining, p.max_size)
         norm_point = min(p.avg_size, limit)
         # strict zone: offsets (start+min_size, start+norm_point]
-        lo = np.searchsorted(strict_idx, start + p.min_size)
-        hi = np.searchsorted(strict_idx, start + norm_point - 1, side="right")
+        lo = bisect.bisect_left(strict, start + p.min_size)
+        hi = bisect.bisect_right(strict, start + norm_point - 1)
         if lo < hi:
-            end = int(strict_idx[lo]) + 1
+            end = strict[lo] + 1
         else:
             # loose zone: offsets (start+norm_point, start+limit]
-            lo = np.searchsorted(loose_idx, start + norm_point)
-            hi = np.searchsorted(loose_idx, start + limit - 1, side="right")
-            end = int(loose_idx[lo]) + 1 if lo < hi else start + limit
+            lo = bisect.bisect_left(loose, start + norm_point)
+            hi = bisect.bisect_right(loose, start + limit - 1)
+            end = loose[lo] + 1 if lo < hi else start + limit
         cuts.append(end)
         start = end
     return cuts

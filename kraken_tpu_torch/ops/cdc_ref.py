@@ -4,9 +4,10 @@ Computes what ``kraken_tpu/ops/cdc.py`` ``_gear_candidates`` computes: the
 32-byte windowed gear hash ``h_i = sum_{j<32} gear(b_{i-j}) << j (mod 2^32)``
 at every position, by the same five log-doubling steps, with zero history
 in the gear domain before offset 0, and the strict and loose mask tests.
-:func:`gear_mask_ref` computes what the kernel writes, in the wrapper's
-buffer layout (:mod:`kraken_tpu_torch.ops.cdc_cuda`). The CPU path of the
-wrapper runs it; on the card it exists to be compared with the kernel.
+:func:`gear_candidates_window_ref` computes what the kernel's wrapper
+returns for one window, in its buffer layout
+(:mod:`kraken_tpu_torch.ops.cdc_cuda`). The CPU route of the wrapper runs
+it; on the card it exists to be compared with the kernel.
 
 Words are carried in ``int64`` masked to 32 bits: PyTorch's ``uint32`` has
 no shifts or additions on the CPU.
@@ -14,9 +15,10 @@ no shifts or additions on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from kraken_tpu_torch.ops.cdc import _GEAR_C1, _GEAR_C2, _WINDOW
+from kraken_tpu_torch.ops.cdc import _GEAR_C1, _GEAR_C2, _WINDOW, split_codes
 
 MASK = 0xFFFFFFFF
 
@@ -54,11 +56,15 @@ def gear_candidates_ref(
     return (h & mask_s) == 0, (h & mask_l) == 0
 
 
-def gear_mask_ref(
+def gear_candidates_window_ref(
     buf: torch.Tensor, n: int, hist: int, mask_s: int, mask_l: int, lead: int
-) -> torch.Tensor:
-    """What ``csrc/gear.cu`` writes for one window: ``buf[lead + p]`` is
-    byte p of the window (p < n), ``buf[lead - hist : lead]`` its real
-    history. Returns [n] uint8, bit 0 strict, bit 1 loose."""
+) -> tuple[np.ndarray, np.ndarray]:
+    """What ``csrc/gear.cu``'s wrapper returns for one window: ``buf[lead +
+    p]`` is byte p of the window (p < n), ``buf[lead - hist : lead]`` its
+    real history. Returns the sorted window-relative strict and loose
+    candidate positions (int64), through the same codes as the kernel's."""
     strict, loose = gear_candidates_ref(buf[lead - hist : lead + n], mask_s, mask_l)
-    return (strict.to(torch.uint8) | (loose.to(torch.uint8) << 1))[hist:]
+    strict, loose = strict[hist:], loose[hist:]
+    pos = torch.nonzero(strict | loose).squeeze(1)
+    codes = (pos << 2) | strict[pos].long() | (loose[pos].long() << 1)
+    return split_codes(codes.cpu().numpy())

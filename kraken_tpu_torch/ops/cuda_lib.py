@@ -44,7 +44,7 @@ _ENTRIES = {
     "sha256_rows_launch": (_P, _P, _P, _I64, _P),
     "sha256_packed_launch": (_P, _I64, _I64, _I64, _P),
     "pack_tiles_launch": (_P, _I64, _I64, _I64, _P),
-    "gear_mask_launch": (_P, _I64, _I32, _U32, _U32, _P),
+    "gear_candidates_launch": (_P, _I64, _I32, _U32, _U32, _P),
     "transpose_only_launch": (_P, _I64, _I64, _P),
 }
 

@@ -174,24 +174,96 @@ def test_params_validation_parity(args):
     )
 
 
-def test_gear_mask_layout_and_checks():
+def test_window_candidates_layout_and_checks():
     """The wrapper's one-window contract on the CPU route: history bytes
-    before the window count, earlier bytes do not, positions past n are
-    not returned; bad buffers are refused."""
+    before the window count, earlier bytes do not, no position >= n is
+    returned, positions come sorted; bad buffers are refused; the CPU
+    route launches nothing."""
     p = CDCParams(64, 256, 1024)
     data = rand(5000, seed=4)
     n, hist = 3000, 17
     buf = torch.zeros(cdc_cuda.LEAD + cdc_cuda.padded(n), dtype=torch.uint8)
     buf[: cdc_cuda.LEAD] = 0xAB  # beyond the history: must not count
     buf[cdc_cuda.LEAD - hist : cdc_cuda.LEAD + n] = torch.from_numpy(data[: hist + n])
-    got = cdc_cuda.gear_mask(buf, n, hist, p.mask_strict, p.mask_loose)
+    buf[cdc_cuda.LEAD + n :] = torch.from_numpy(data[hist + n : hist + cdc_cuda.padded(n)])
+    cdc_cuda.reset_launches()
+    got_s, got_l = cdc_cuda.gear_candidates(buf, n, hist, p.mask_strict, p.mask_loose)
     s, l = gear_candidates_ref(torch.from_numpy(data[: hist + n]), p.mask_strict, p.mask_loose)
-    assert got.shape == (n,)
-    assert torch.equal(got, (s.to(torch.uint8) | l.to(torch.uint8) << 1)[hist:])
+    np.testing.assert_array_equal(got_s, np.flatnonzero(s.numpy()[hist:]))
+    np.testing.assert_array_equal(got_l, np.flatnonzero(l.numpy()[hist:]))
+    assert got_l.size > got_s.size > 0 and got_l.dtype == np.int64
+    assert got_l.max() < n and np.all(np.diff(got_l) > 0) and np.all(np.diff(got_s) > 0)
+    # Every position at mask 0: none past n although the padding is data.
+    all_s, all_l = cdc_cuda.gear_candidates(buf, n, hist, 0, 0)
+    np.testing.assert_array_equal(all_s, np.arange(n))
+    np.testing.assert_array_equal(all_l, np.arange(n))
     with pytest.raises(ValueError, match="needs"):
-        cdc_cuda.gear_mask(buf[:-1], n, hist, p.mask_strict, p.mask_loose)
+        cdc_cuda.gear_candidates(buf[:-1], n, hist, p.mask_strict, p.mask_loose)
     with pytest.raises(ValueError, match="hist"):
-        cdc_cuda.gear_mask(buf, n, 32, p.mask_strict, p.mask_loose)
+        cdc_cuda.gear_candidates(buf, n, 32, p.mask_strict, p.mask_loose)
     with pytest.raises(ValueError, match="uint8"):
-        cdc_cuda.gear_mask(buf.long(), n, hist, p.mask_strict, p.mask_loose)
+        cdc_cuda.gear_candidates(buf.long(), n, hist, p.mask_strict, p.mask_loose)
+    with pytest.raises(ValueError, match="cuda"):
+        cdc_cuda.launch(buf, n, hist, p.mask_strict, p.mask_loose,
+                        torch.empty(n + 1, dtype=torch.int32))
     assert cdc_cuda.LAUNCHES["gear_candidates"] == 0  # the CPU route launches nothing
+
+
+@pytest.mark.parametrize("route", ["dense, candidate_indices", "mask 0, one window"])
+def test_port_candidates_match_pallas_interpret(route):
+    """The port's candidates on the CPU against the Pallas kernel in
+    interpret mode: at CDCParams(64, 256, 1024) (loose candidates ~1 in 64)
+    through the window loop, and at mask 0 (every position; no CDCParams
+    gives it) through the one-window wrapper, on a window with history."""
+    arr = rand(70_000, seed=21)
+    if route.startswith("dense"):
+        p = CDCParams(64, 256, 1024)
+        want = candidate_indices_pallas(arr, arr.size, p.mask_strict, p.mask_loose,
+                                        interpret=True)
+        got = cdc_cuda.candidate_indices(arr, arr.size, p, CPU)
+        assert want[1].size > 500
+    else:
+        s, m, hist = 40_000, 20_000, 31
+        full = candidate_indices_pallas(arr, s + m, 0, 0, interpret=True)
+        want = [w[w >= s] - s for w in full]
+        buf = torch.zeros(cdc_cuda.LEAD + cdc_cuda.padded(m), dtype=torch.uint8)
+        buf[cdc_cuda.LEAD - hist : cdc_cuda.LEAD + m] = torch.from_numpy(arr[s - hist : s + m])
+        got = cdc_cuda.gear_candidates(buf, m, hist, 0, 0)
+        assert want[0].size == m
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize(
+    "mask_s, mask_l, why",
+    [(0xFFFF0001, 0xFFF00000, "mask_s"),  # strict not a top-bit mask
+     (0xFFFC0000, 0x0FF00000, "mask_l"),  # loose not a top-bit mask
+     (0xFFF00000, 0xFFFC0000, "contain"),  # loose wider than strict
+     (1 << 32, 0, "mask_s"), (0, -1, "mask_l")],
+)
+def test_masks_must_be_nested_top_bit_masks(mask_s, mask_l, why):
+    """The kernel tests both masks with one compare, so the port takes
+    only what CDCParams makes; the Pallas kernel takes any integers."""
+    buf = torch.zeros(cdc_cuda.LEAD + cdc_cuda.STEP, dtype=torch.uint8)
+    with pytest.raises(ValueError, match=why):
+        cdc_cuda.gear_candidates(buf, 100, 0, mask_s, mask_l)
+    with pytest.raises(ValueError, match=why):
+        cdc.check_masks(mask_s, mask_l)
+    for p in (P, CDCParams(), CDCParams(32, 32, 32, 0), CDCParams(64, 256, 1024, 9)):
+        cdc.check_masks(p.mask_strict, p.mask_loose)
+
+
+def test_codes_split_into_sorted_strict_and_loose():
+    """The host helper both routes share: codes pos << 2 | kind (bit 0
+    strict, bit 1 loose) in any order -> the sorted position lists."""
+    rng = np.random.default_rng(3)
+    pos = rng.choice(1 << 26, 5000, replace=False)
+    kind = rng.choice([2, 3], pos.size)  # nested masks: a strict hit is a loose hit
+    codes = (pos << 2 | kind).astype(np.int32)
+    rng.shuffle(codes)
+    strict, loose = cdc.split_codes(codes)
+    np.testing.assert_array_equal(strict, np.sort(pos[kind == 3]))
+    np.testing.assert_array_equal(loose, np.sort(pos))
+    assert strict.dtype == loose.dtype == np.int64
+    empty = cdc.split_codes(np.empty(0, dtype=np.int32))
+    assert empty[0].size == empty[1].size == 0

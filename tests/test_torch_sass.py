@@ -1,8 +1,8 @@
-"""The SHA-256 kernels' bound as ``chip_smoke.py`` computes it, and their
-per-block SASS as it reads it, on the CPU: the function's work a block,
-both bound formulas and the loop finder and opcode classifier, held
-against values worked out by hand and a short ``cuobjdump -sass`` excerpt
-written here. Nothing here needs the card."""
+"""The SHA-256 and gear kernels' bounds as ``chip_smoke.py`` computes them,
+and their SASS as it reads it, on the CPU: the functions' work by pipe, the
+bound formulas, the loop finders and the opcode classifier, held against
+values worked out by hand and short ``cuobjdump -sass`` excerpts written
+here. Nothing here needs the card."""
 
 import pytest
 import torch
@@ -71,7 +71,7 @@ OTHER = [
     "IADD3 R1, R1, R2, R3",                               # 0x30
     "BRA 0x0",                                            # 0x40
 ]
-SASS = _listing({"sha256_rows_kernel": ROWS, "gear_mask_kernel": OTHER})
+SASS = _listing({"sha256_rows_kernel": ROWS, "gear_candidates_kernel": OTHER})
 
 
 @pytest.mark.parametrize(
@@ -98,6 +98,7 @@ SASS = _listing({"sha256_rows_kernel": ROWS, "gear_mask_kernel": OTHER})
         ("DEPBAR.LE SB0, 0x1", "other"),
         ("@!P0 BRA 0xc0", "other"),
         ("VIADD R13, R12, 0x428a2f98", "alu"),
+        ("VIMNMX3.U32 R50, R27, R12, R0, PT", "alu"),
         ("BAR.SYNC.DEFER_BLOCKING R16, 0x40", "other"),
         ("STS.128 [R30], R12", "other"),
         ("UIADD3 UR4, UR4, 0x1, URZ", "other"),
@@ -112,7 +113,7 @@ def test_sass_function_reads_one_kernel_only():
     ins = cs.sass_function(SASS, "sha256_rows_kernel")
     assert [a for a, _ in ins] == [16 * i for i in range(len(ROWS))]
     assert [t for _, t in ins] == ROWS
-    assert cs.sass_instructions(SASS, "gear_mask_kernel") == len(OTHER)
+    assert cs.sass_instructions(SASS, "gear_candidates_kernel") == len(OTHER)
     assert cs.sass_function(SASS, "sha256_packed_kernel") == []
 
 
@@ -279,3 +280,92 @@ def test_card_bound_keeps_its_signature():
 def test_packed_work_counts_the_padding_block():
     assert cs.packed_work(1024, 1) == (2048, 2, 1024 * 64 + 1024 * 32)
     assert cs.packed_work(2048, 8) == (2048 * 9, 9, 2048 * 8 * 64 + 2048 * 32)
+
+
+# The shape of gear_candidates_kernel: the table's fill loop, the warm-up,
+# then the step loop (0x80 to 0x1c0): the next step's loads, a run body cut
+# short, the vote and a forward branch over the rare path (0x120 to 0x170,
+# with the atomic) to the loop's tail; a divergence fallback outside it.
+GEAR = [
+    "STS [R3], R4",                                       # 0x00
+    "@P0 BRA 0x0",                                        # 0x10  fill loop
+    "BAR.SYNC.DEFER_BLOCKING 0x0",                        # 0x20
+    "LDG.E.U8 R2, desc[UR6][R2.64]",                      # 0x30
+    "REDUX.SUM UR4, R2",                                  # 0x40
+    "LDG.E.128.CONSTANT R12, desc[UR6][R36.64]",          # 0x50
+    "LDG.E.128.CONSTANT R8, desc[UR6][R36.64+0x10]",      # 0x60
+    "ISETP.GE.U32.AND P0, PT, R0, R15, PT",               # 0x70
+    "@!P0 LDG.E.128.CONSTANT R4, desc[UR6][R2.64+0x400]",  # 0x80  step loop
+    "PRMT R19, R12, 0x4440, RZ",                          # 0x90
+    "LEA R19, R19, R20, 0x7",                             # 0xa0
+    "LDS R19, [R19]",                                     # 0xb0
+    "IMAD R21, R21, 0x2, R19",                            # 0xc0
+    "BRA.DIV UR5, 0x1f0",                                 # 0xd0
+    "SHFL.UP PT, R50, R27, 0x1, RZ",                      # 0xe0
+    "VIMNMX3.U32 R50, R27, R12, R0, PT",                  # 0xf0
+    "VOTE.ANY P0, !P0",                                   # 0x100
+    "@!P0 BRA 0x180",                                     # 0x110
+    "POPC R3, R2",                                        # 0x120 rare path
+    "SHFL.UP PT, R33, R32, 0x1, RZ",                      # 0x130
+    "@!P1 ATOMG.E.ADD.STRONG.GPU PT, R75, desc[UR6][R2.64], R33",  # 0x140
+    "STG.E [R4.64], R5",                                  # 0x150
+    "@P2 BRA 0x150",                                      # 0x160
+    "NOP",                                                # 0x170
+    "IADD3 R0, P1, R19, 0x400, RZ",                       # 0x180 loop tail
+    "ISETP.GE.U32.AND P0, PT, R0, R15, PT",               # 0x190
+    "IMAD.X R3, RZ, RZ, R17, P1",                         # 0x1a0
+    "MOV R12, R4",                                        # 0x1b0
+    "@!P0 BRA 0x80",                                      # 0x1c0
+    "EXIT",                                               # 0x1d0
+    "BRA 0x1e0",                                          # 0x1e0
+    "WARPSYNC.COLLECTIVE R11, 0x200",                     # 0x1f0 divergence fallback
+    "BRA 0xe0",                                           # 0x200
+]
+
+
+def test_gear_run_body_is_the_step_loop_without_the_rare_path():
+    sass = _listing({"gear_candidates_kernel": GEAR})
+    body = cs.gear_run_body(sass)
+    # The step loop (0x80-0x1c0) less what its vote's branch skips (0x120-0x170);
+    # the divergence fallback's back-branch starts later, the fill loop loads no 16 bytes.
+    assert body == GEAR[8:18] + GEAR[24:29]
+    # PRMT, LEA, VIMNMX3, IADD3, ISETP, MOV; IMAD, IMAD.X; the loads, the
+    # shuffle, the vote and the three branches.
+    assert cs.pipe_counts(body) == {"alu": 6, "fma": 2, "other": 7}
+    assert cs.gear_sass_per_byte(sass) == {"alu": 6 / 32, "fma": 2 / 32, "other": 7 / 32}
+    with pytest.raises(ValueError, match="no loop"):
+        cs.gear_run_body(_listing({"gear_candidates_kernel": GEAR[:8] + GEAR[29:]}))
+
+
+def test_gear_work_a_byte_counted_by_hand():
+    # The lookup form: per byte, PRMT and half a 3-input min on the ALU pipe,
+    # the table address and the shift-add on either, one shared-memory
+    # load. Its busiest leg is the issue slots: 4.5 / 128 clocks a byte.
+    assert cs.GEAR_WORK == {"alu": 1.5, "either": 2, "lds": 1}
+    assert cs.throughput_cycles(cs.GEAR_WORK) == pytest.approx(4.5 / 128)
+    # The map computed arithmetically (two shifts and two xors, two
+    # multiplies) with the shift-add and a min: 5 / 64 on the ALU pipe.
+    arithmetic = {"alu": 5, "fma": 2, "either": 1}
+    assert cs.throughput_cycles(arithmetic) == pytest.approx(5 / 64)
+    assert cs.throughput_cycles(cs.GEAR_WORK) < cs.throughput_cycles(arithmetic)
+    # Shared-memory loads alone: 32 lanes an SM a clock.
+    assert cs.throughput_cycles({"alu": 0, "either": 0, "lds": 64}) == pytest.approx(2)
+
+
+def test_gear_bounds_at_the_main_window_are_the_bytes():
+    win = 64 << 20
+    b = cs.gear_bounds(win, win + 31 + 4 * 4097, sms=132, clock_hz=1.98e9)
+    assert b["bytes_bound_ms"] == pytest.approx((win + 31 + 4 * 4097) / 3.35e12 * 1e3)
+    assert b["ops_bound_ms"] == pytest.approx(win * 4.5 / 128 / 132 / 1.98e9 * 1e3)  # 0.0090 ms
+    assert b["bound_ms"] == b["bytes_bound_ms"] == pytest.approx(0.02004, abs=1e-5)
+    assert b["bound_by"] == "bytes"
+    # The arithmetic form's 5 / 64 clocks a byte: 0.0201 ms, a hair above.
+    assert win * (5 / 64) / 132 / 1.98e9 * 1e3 == pytest.approx(0.02006, abs=1e-5)
+
+
+def test_gear_bound_below_every_measured_time():
+    # The fastest time a 64 MiB window has run in on the card, by any build
+    # of the kernel (NVIDIA H100 80GB HBM3, 700 W, SM clock 1980 MHz,
+    # queued; PERF.md): 0.02898 ms, the table map as shipped.
+    win = 64 << 20
+    assert cs.gear_bounds(win, win + 31, sms=132, clock_hz=1.98e9)["bound_ms"] < 0.02898
