@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs ten phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs eleven phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -101,12 +101,33 @@ without a result:
    packed ones at both shapes. Each decomposition is a path of its own: the
    counters are zeroed just before it and read just after, and every
    kernel it drives must have launched exactly as often as it times them.
+11. ``swarm``  -- the P2P plane: port ``Scheduler``s, each with its own
+   ``CAStore``, on 127.0.0.1 in this process's one asyncio loop, an
+   in-memory tracker (``SwarmTracker``), the default ``SchedulerConfig``.
+   Every agent's ``BatchedVerifier`` takes the ``cuda`` hasher with a 2 ms
+   window, as the reference's agent builds one for an accelerator hasher;
+   each seeder's metainfo comes from ``Generator(store)`` on the card, at
+   4 MiB pieces, and its piece hashes must equal hashlib's over the
+   seeder's bytes. Three legs: (a) BASELINE.json config 2, 10 agents pulling
+   two layers sized like ``alpine`` and ``ubuntu:22.04`` (``SWARM_LAYERS``)
+   from one origin-style seeder, all at t = 0; (b) one agent pulling a
+   1 GiB blob (256 pieces); (c) a seeder serving one piece with a flipped
+   byte, the agent's only peer until it rejects that piece on the card and
+   blacklists it, then a good seeder. Gates: every blob byte-identical;
+   ``sha256_uniform`` launched for the seeders' metainfo; in each leg
+   ``sha256_ragged`` launched at least once an agent and layer and at most
+   once a verified piece, the rows hashed on the card covering every
+   piece the agents needed, no host verify batch, the leg inside its
+   timeout (``SWARM_TIMEOUT_S``); in (c) a ban for a digest mismatch. Each
+   leg prints its wall, (a) the agents' pull p50 and p99, (b) GB/s, the
+   launches, rows a launch, the flush sizes, the summed seconds of the
+   ``hash_batch`` calls and the part of the wall some verify ran in.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
-agent; each ingest run; the dedup indexing; each decomposition) and read
-just after it: every
+agent; each ingest run; the dedup indexing; each decomposition; each
+swarm leg, and each seeder's metainfo) and read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -133,6 +154,7 @@ from __future__ import annotations
 
 import asyncio
 import gc
+import hashlib
 import json
 import os
 import re
@@ -141,6 +163,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -497,6 +520,375 @@ class Card:
         """The SM clock now, read right after a timed launch: a short launch
         on a card whose clock has not ramped reads slow."""
         return float(smi("clocks.sm", "nounits"))
+
+
+# -- phase 11, the swarm ----------------------------------------------------
+# Two layers sized like the compressed amd64 layers of ``alpine`` (about
+# 3.4 MB) and ``ubuntu:22.04`` (about 29.5 MB) on Docker Hub: BASELINE.json
+# config 2's multi-layer pull. The exact counts are this script's own; the
+# bytes come from numpy, seeded. At 4 MiB pieces: 1 + 8 pieces.
+SWARM_LAYERS = (("alpine", 3_418_017), ("ubuntu", 29_535_503))
+SWARM_AGENTS = 10
+SWARM_NS = "library"
+SWARM_TRACKER_INTERVAL = 0.5  # seconds the in-memory tracker hands out
+SWARM_PAIR_BYTES = GiB  # BASELINE.json config 1's blob: 256 pieces
+SWARM_CORRUPT_BYTES = 16 * PIECE  # one pipeline of requests (16)
+SWARM_CORRUPT_PIECE = 5
+SWARM_TIMEOUT_S = {"flash_crowd": 180.0, "pair": 300.0, "corrupt": 120.0}
+
+
+class SwarmTracker:
+    """In-memory announce and metainfo service shared by the peers of a
+    leg, on the model of ``tests/test_swarm.py``'s ``FakeTracker`` (the
+    port's tracker is a later slice)."""
+
+    def __init__(self, interval: float):
+        self.interval = interval
+        self.metainfos: dict = {}
+        self.peers: dict[str, dict] = {}
+
+    def client(self, ref: dict):
+        from kraken_tpu_torch.core.peer import PeerInfo
+
+        tracker = self
+
+        class Client:
+            async def get(self, namespace, d):
+                return tracker.metainfos[d.hex]
+
+            async def announce(self, d, h, namespace, complete):
+                me = ref["s"]
+                swarm = tracker.peers.setdefault(h.hex, {})
+                swarm[me.peer_id.hex] = PeerInfo(me.peer_id, me.ip, me.port,
+                                                 complete=complete)
+                return ([p for k, p in swarm.items() if k != me.peer_id.hex],
+                        tracker.interval)
+
+        return Client()
+
+
+class HashBatchTimer:
+    """Stands in for a hasher's ``hash_batch``: each call's rows and its
+    start and end on the host clock (calls run on worker threads), and how
+    many calls are running."""
+
+    def __init__(self, hasher):
+        self._inner = hasher.hash_batch
+        self._lock = threading.Lock()
+        self.calls: list[tuple[float, float, int]] = []
+        self.running = 0
+        hasher.hash_batch = self
+
+    def __call__(self, pieces):
+        with self._lock:
+            self.running += 1
+        t0 = time.perf_counter()
+        try:
+            return self._inner(pieces)
+        finally:
+            with self._lock:
+                self.calls.append((t0, time.perf_counter(), len(pieces)))
+                self.running -= 1
+
+    async def settled(self, quiet: float = 0.05) -> None:
+        """Return once no call has run or started for ``quiet`` seconds:
+        late duplicates of a finished pull may still be in a flush."""
+        seen = -1
+        while True:
+            with self._lock:
+                state = (self.running, len(self.calls))
+            if state[0] == 0 and state[1] == seen:
+                return
+            seen = state[1]
+            await asyncio.sleep(quiet)
+
+    def take(self) -> list[tuple[float, float, int]]:
+        with self._lock:
+            calls, self.calls = self.calls, []
+        return calls
+
+
+def covered_seconds(spans) -> float:
+    """Seconds covered by at least one of the (start, end) spans."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+class SwarmCounters:
+    """The launch counters and the verify plane's metrics over one leg:
+    zeroed (or read) just before it, read just after it and the flushes
+    it left running."""
+
+    def __init__(self, timer: HashBatchTimer):
+        from kraken_tpu_torch.ops import sha256_cuda
+        from kraken_tpu_torch.utils.metrics import REGISTRY
+
+        self._sha, self._reg, self._timer = sha256_cuda, REGISTRY, timer
+
+    def _metrics(self) -> dict:
+        c = self._reg.counter
+        return {
+            "verify_host": c("verify_batches_total").value(path="host"),
+            "verify_flushes": c("verify_batches_total").value(path="cuda"),
+            "verified_pieces": c("verify_pieces_total").value(),
+            "rows_hashed": c("hasher_pieces_total").value(hasher="cuda"),
+            "bytes_hashed": c("hasher_bytes_total").value(hasher="cuda"),
+            "bytes_down": c("p2p_piece_bytes_down_total").value(),
+            "size_observations": self._reg.histogram("verify_batch_size").count(),
+        }
+
+    def start(self) -> None:
+        self._timer.take()
+        self._before = self._metrics()
+        self._sha.reset_launches()
+        self._t0 = time.perf_counter()
+
+    async def stop(self) -> dict:
+        """The leg's wall ends now; its counts are read once the verify
+        flushes still running have ended."""
+        wall = time.perf_counter() - self._t0
+        await self._timer.settled()
+        launches = dict(self._sha.LAUNCHES)
+        after = self._metrics()
+        d = {k: after[k] - self._before[k] for k in after}
+        calls = self._timer.take()
+        sizes: dict[int, int] = {}
+        for _a, _b, n in calls:
+            sizes[n] = sizes.get(n, 0) + 1
+        end = self._t0 + wall  # verify time within the leg's wall
+        busy = covered_seconds((a, min(b, end)) for a, b, _n in calls if a < end)
+        ragged = launches["sha256_ragged"]
+        return {
+            "wall_s": wall, "launches": launches,
+            "verify_flushes": d["verify_flushes"], "verified_pieces": d["verified_pieces"],
+            "rows_hashed": d["rows_hashed"], "bytes_hashed": d["bytes_hashed"],
+            "bytes_down": d["bytes_down"],
+            "rows_per_launch": d["rows_hashed"] / ragged if ragged else None,
+            "flush_sizes": {str(k): v for k, v in sorted(sizes.items())},
+            "verify_batch_size_observations": d["size_observations"],
+            "hash_batch_calls": len(calls),
+            "hash_batch_s": sum(b - a for a, b, _n in calls),
+            "verify_busy_s": busy, "verify_share_of_wall": busy / wall,
+            "verify_batches_host": d["verify_host"],
+        }
+
+
+def check_swarm_leg(leg: str, r: dict, agents: int, layers: int, pieces: int) -> None:
+    """The gates of a leg: ``pieces`` is what its agents needed in all."""
+    ragged = r["launches"]["sha256_ragged"]
+    if ragged < agents * layers:
+        raise AssertionError(f"swarm {leg}: {ragged} ragged launches for {agents} "
+                             f"agents x {layers} layers")
+    if ragged > r["verified_pieces"]:
+        raise AssertionError(f"swarm {leg}: {ragged} ragged launches for "
+                             f"{r['verified_pieces']} verified pieces")
+    # Every piece a torrent took passed verify; with no host verify, on the
+    # card. (Late duplicates may still be in a flush when the leg ends.)
+    if r["rows_hashed"] < pieces:
+        raise AssertionError(f"swarm {leg}: {r['rows_hashed']} rows on the card for "
+                             f"{pieces} needed pieces")
+    if r["verify_batches_host"]:
+        raise AssertionError(f"swarm {leg}: {r['verify_batches_host']} host verify batches")
+
+
+async def swarm_legs(root: str, card_name_power: str) -> dict:
+    """Phase 11: port schedulers pull over loopback in this process's one
+    loop, every agent verifying on the card. Returns each leg's result."""
+    from kraken_tpu_torch import (
+        AgentTorrentArchive, BatchedVerifier, CAStore, Digest, Generator,
+        OriginTorrentArchive, get_hasher,
+    )
+    from kraken_tpu_torch.core.peer import PeerID
+    from kraken_tpu_torch.ops import sha256_cuda
+    from kraken_tpu_torch.p2p.networkevent import Producer
+    from kraken_tpu_torch.p2p.scheduler import Scheduler, SchedulerConfig
+
+    hasher = get_hasher("cuda")  # what every agent's verifier takes
+    timer = HashBatchTimer(hasher)
+    counters = SwarmCounters(timer)
+    results = {}
+
+    def store_with(name: str, blobs: dict, lie: bool = False) -> CAStore:
+        store = CAStore(os.path.join(root, name))
+        for d, data in blobs.items():
+            uid = store.create_upload()
+            store.write_upload_chunk(uid, 0, data)
+            store.commit_upload(uid, d, verify=not lie)
+        return store
+
+    def peer(tracker, store, archive_cls, events=None):
+        ref: dict = {}
+        client = tracker.client(ref)
+        # The agent's verifier as the reference's agent builds one for an
+        # accelerator hasher: a 2 ms window, so arrivals coalesce.
+        verifier = BatchedVerifier(hasher=hasher, max_delay_seconds=0.002)
+        s = Scheduler(PeerID(os.urandom(20).hex()), "127.0.0.1", 0,
+                      archive_cls(store, verifier), client, client,
+                      config=SchedulerConfig(), events=events)
+        ref["s"] = s
+        return s
+
+    def metainfo(tracker, store, blobs: dict) -> tuple[list, dict]:
+        """The seeder's metainfo through ``Generator(store)`` on the card,
+        its piece hashes held against hashlib over the seeder's bytes, so
+        the agents' verify answers to a reference the kernel does not
+        share."""
+        sha256_cuda.reset_launches()
+        gen = Generator(store)
+        mis = [gen.generate_sync(d) for d in blobs]
+        launches = dict(sha256_cuda.LAUNCHES)
+        if not launches["sha256_uniform"]:
+            raise AssertionError("swarm: the seeder's metainfo skipped sha256_uniform")
+        for mi in mis:
+            if mi.piece_length != PIECE:
+                raise AssertionError(f"swarm: piece length {mi.piece_length}")
+            view = memoryview(blobs[mi.digest])
+            want = b"".join(hashlib.sha256(view[o:o + PIECE]).digest()
+                            for o in range(0, len(view), PIECE))
+            if mi.piece_hashes != want:
+                raise AssertionError(f"swarm: metainfo of {mi.digest.hex[:12]} != hashlib")
+            tracker.metainfos[mi.digest.hex] = mi
+        return mis, launches
+
+    async def run(leg, scheds, coro):
+        for s in scheds:
+            await s.start()
+        try:
+            return await asyncio.wait_for(coro, SWARM_TIMEOUT_S[leg])
+        finally:
+            for s in scheds:
+                await s.stop()
+
+    def identical(store, d, data, what):
+        if store.read_cache_file(d) != data:
+            raise AssertionError(f"swarm {what}: blob is not byte-identical")
+
+    # (a) Flash crowd: one origin-style seeder, 10 agents, both layers at t = 0.
+    tracker = SwarmTracker(SWARM_TRACKER_INTERVAL)
+    layers = {}
+    for i, (name, size) in enumerate(SWARM_LAYERS):
+        data = np.random.default_rng(SEED + 20 + i).bytes(size)
+        layers[Digest.from_bytes(data)] = data
+    ostore = store_with("origin", layers)
+    mis, gen_launches = metainfo(tracker, ostore, layers)
+    seeder = peer(tracker, ostore, OriginTorrentArchive)
+    agents = []
+    for i in range(SWARM_AGENTS):
+        store = CAStore(os.path.join(root, f"agent{i}"))
+        agents.append((peer(tracker, store, AgentTorrentArchive), store))
+
+    async def flash_crowd():
+        for mi in mis:
+            seeder.seed(mi, SWARM_NS)
+
+        async def pull(agent):
+            t0 = time.perf_counter()
+            await asyncio.gather(*(agent.download(SWARM_NS, d) for d in layers))
+            return time.perf_counter() - t0
+
+        counters.start()
+        secs = await asyncio.gather(*(pull(a) for a, _st in agents))
+        return secs, await counters.stop()
+
+    secs, r = await run("flash_crowd", [seeder] + [a for a, _st in agents], flash_crowd())
+    for _a, store in agents:
+        for d, data in layers.items():
+            identical(store, d, data, "flash crowd")
+    pieces = SWARM_AGENTS * sum(mi.num_pieces for mi in mis)
+    check_swarm_leg("flash crowd", r, SWARM_AGENTS, len(layers), pieces)
+    r.update({"pull_s_p50": float(np.percentile(secs, 50)),
+              "pull_s_p99": float(np.percentile(secs, 99)), "pull_s": secs,
+              "needed_pieces": pieces, "metainfo_launches": gen_launches})
+    results["flash_crowd"] = r
+    emit({"phase": "swarm", "leg": "flash_crowd",
+          "config": "BASELINE.json config 2: alpine + ubuntu multi-layer pull, "
+                    f"{SWARM_AGENTS} peers, default scheduler",
+          "layers": {n: s for n, s in SWARM_LAYERS},
+          "pieces": [mi.num_pieces for mi in mis], "piece_length": PIECE,
+          "timeout_s": SWARM_TIMEOUT_S["flash_crowd"], "card": card_name_power, **r})
+    del layers, agents
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (b) Pair pull at config 1's size: one agent, 1 GiB, 256 pieces.
+    tracker = SwarmTracker(SWARM_TRACKER_INTERVAL)
+    data = np.random.default_rng(SEED + 30).bytes(SWARM_PAIR_BYTES)
+    d = Digest.from_bytes(data)
+    ostore = store_with("origin", {d: data})
+    (mi,), gen_launches = metainfo(tracker, ostore, {d: data})
+    seeder = peer(tracker, ostore, OriginTorrentArchive)
+    astore = CAStore(os.path.join(root, "agent"))
+    agent = peer(tracker, astore, AgentTorrentArchive)
+
+    async def pair():
+        seeder.seed(mi, SWARM_NS)
+        counters.start()
+        await agent.download(SWARM_NS, d)
+        return await counters.stop()
+
+    r = await run("pair", [seeder, agent], pair())
+    identical(astore, d, data, "pair")
+    check_swarm_leg("pair", r, 1, 1, mi.num_pieces)
+    r.update({"gbps": SWARM_PAIR_BYTES / r["wall_s"] / 1e9, "needed_pieces": mi.num_pieces,
+              "metainfo_launches": gen_launches})
+    results["pair"] = r
+    emit({"phase": "swarm", "leg": "pair", "config": "BASELINE.json config 1's blob, one agent",
+          "blob_bytes": SWARM_PAIR_BYTES, "pieces": mi.num_pieces, "piece_length": PIECE,
+          "timeout_s": SWARM_TIMEOUT_S["pair"], "card": card_name_power, **r})
+    del data
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (c) A corrupt seeder serves one piece with a flipped byte. It is the
+    # agent's only peer until the agent has rejected that piece on the card
+    # and blacklisted it; then a good seeder joins and the pull completes.
+    tracker = SwarmTracker(SWARM_TRACKER_INTERVAL)
+    data = np.random.default_rng(SEED + 40).bytes(SWARM_CORRUPT_BYTES)
+    d = Digest.from_bytes(data)
+    bad = bytearray(data)
+    bad[SWARM_CORRUPT_PIECE * PIECE + 1234] ^= 0x01
+    good_store = store_with("good", {d: data})
+    (mi,), gen_launches = metainfo(tracker, good_store, {d: data})
+    evil = peer(tracker, store_with("evil", {d: bytes(bad)}, lie=True), OriginTorrentArchive)
+    good = peer(tracker, good_store, OriginTorrentArchive)
+    events = Producer("agent")
+    astore = CAStore(os.path.join(root, "agent"))
+    agent = peer(tracker, astore, AgentTorrentArchive, events=events)
+    del bad
+
+    async def corrupt():
+        evil.seed(mi, SWARM_NS)
+        counters.start()
+        t0 = time.perf_counter()
+        pull = asyncio.create_task(agent.download(SWARM_NS, d))
+        while not agent.conn_state.blacklist.blocked(evil.peer_id, mi.info_hash):
+            if pull.done():
+                await pull  # raises what ended it
+                raise AssertionError("swarm corrupt: completed from the corrupt seeder")
+            await asyncio.sleep(0.01)
+        rejected_after = time.perf_counter() - t0
+        good.seed(mi, SWARM_NS)
+        await pull
+        return await counters.stop(), rejected_after
+
+    r, rejected_after = await run("corrupt", [evil, good, agent], corrupt())
+    identical(astore, d, data, "corrupt")
+    bans = [e for e in events.events
+            if e["name"] == "blacklist_conn" and e.get("peer") == evil.peer_id.hex]
+    if not any("digest mismatch" in e.get("reason", "") for e in bans):
+        raise AssertionError(f"swarm corrupt: no digest-mismatch ban of the seeder: {bans}")
+    check_swarm_leg("corrupt", r, 1, 1, mi.num_pieces)
+    r.update({"bans": [e["reason"] for e in bans], "needed_pieces": mi.num_pieces,
+              "metainfo_launches": gen_launches,
+              "rejected_after_s": rejected_after})
+    results["corrupt"] = r
+    emit({"phase": "swarm", "leg": "corrupt", "blob_bytes": SWARM_CORRUPT_BYTES,
+          "pieces": mi.num_pieces, "corrupt_piece": SWARM_CORRUPT_PIECE,
+          "timeout_s": SWARM_TIMEOUT_S["corrupt"], "card": card_name_power, **r})
+    shutil.rmtree(root, ignore_errors=True)
+    return results
 
 
 def main() -> int:
@@ -1264,6 +1656,17 @@ def main() -> int:
     t_bound = legs(full)["transpose_only"]
     emit({"phase": "relayout", "checks": checks, "max_abs_err": t_err})
 
+    # -- 11. swarm: port schedulers over loopback, verify on the card -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    work.mkdir(exist_ok=True)
+    swarm_start = time.perf_counter()
+    try:
+        swarm = asyncio.run(swarm_legs(tempfile.mkdtemp(dir=work), card.name_power))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    swarm_secs = time.perf_counter() - swarm_start
+
     print(card.name_power, flush=True)
     def sha_entry(leg, kernel):
         """A SHA-256 entry's bounds, and its per-block loop as built."""
@@ -1280,11 +1683,15 @@ def main() -> int:
          "replaces": "kraken_tpu/ops/sha256_pallas.py:199",
          "launches": main_launches["sha256_uniform"], "ms": uni_main_ms,
          "plain_ms": uni_plain_ms, "ms_at_plain_shape": uni_ms,
+         "swarm_metainfo_launches": {leg: r["metainfo_launches"]["sha256_uniform"]
+                                     for leg, r in swarm.items()},
+         "swarm_launches": {leg: r["launches"]["sha256_uniform"] for leg, r in swarm.items()},
          **sha_entry(uni_main, ROWS_KERNEL)},
         {"name": "sha256_ragged", **common,
          "replaces": "kraken_tpu/ops/sha256.py:140",
          "launches": main_launches["sha256_ragged"], "ms": rag_main_ms,
          "plain_ms": rag_plain_ms, "ms_at_plain_shape": rag_ms,
+         "swarm_launches": {leg: r["launches"]["sha256_ragged"] for leg, r in swarm.items()},
          **sha_entry(rag_main, ROWS_KERNEL)},
         {"name": "pack_tiles_device", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -1320,7 +1727,7 @@ def main() -> int:
          "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
          "ms_at_bench_shape": decomps["bench_shape"]["transpose_only_ms"]},
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
-        "dedup_seconds": dedup_secs,
+        "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

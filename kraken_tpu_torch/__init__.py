@@ -17,8 +17,12 @@ pipelined ingest plane (``core.ingest.IngestPipeline``, which the
 path's two kernels (``csrc/sha256_packed.cu``) -- and the dedup plane
 (``origin.dedup.DedupIndex``): FastCDC chunking through the gear kernel
 (``ops.cdc``, ``csrc/gear.cu``), chunk fingerprints through the SHA-256
-kernel, MinHash sketches and LSH indexes (``ops.minhash``). Entry points run
-on the card unless the caller asks for the CPU (a CPU hasher,
+kernel, MinHash sketches and LSH indexes (``ops.minhash``) -- and the P2P
+wire and swarm (``p2p.wire``, ``p2p.conn``, ``p2p.dispatch``, ``p2p.pex``,
+``p2p.scheduler``): schedulers pull blobs from each other over TCP, each
+agent verifying every received piece on the card, with the wire's headers
+through the port's own MessagePack codec (``utils.msgpack_lite``). Entry
+points run on the card unless the caller asks for the CPU (a CPU hasher,
 ``device="cpu"``).
 """
 

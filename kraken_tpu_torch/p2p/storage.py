@@ -14,6 +14,7 @@ import asyncio
 import logging
 import os
 import threading
+import time
 from typing import Optional
 
 from kraken_tpu_torch.core.digest import Digest
@@ -167,12 +168,21 @@ class Torrent:
         metainfo: MetaInfo,
         verifier: BatchedVerifier,
         complete: bool = False,
+        path: Optional[str] = None,
     ):
         self.store = store
         self.metainfo = metainfo
         self._verifier = verifier
+        # Serve-while-ingest: a complete torrent whose bytes still live at
+        # the upload spool ``path``; promote() repoints it at the cache
+        # path after the commit's rename (an open fd keeps its inode).
+        self.spool_backed = False
         if complete:
-            self._path = store.cache_path(metainfo.digest)
+            if path is not None:
+                self._path = path
+                self.spool_backed = True
+            else:
+                self._path = store.cache_path(metainfo.digest)
             self._status = None  # complete: no bitfield needed
         else:
             # Incomplete data lives at the partial path until the last
@@ -183,6 +193,7 @@ class Torrent:
             self._status = md or PieceStatusMetadata(metainfo.num_pieces)
         # Serializes bitfield updates + completion check.
         self._lock = asyncio.Lock()
+        self._full_bits: Optional[bytes] = None  # memoized complete bitfield
         # One long-lived fd with positional IO: piece reads and writes from
         # worker threads need no lock and share no file offset.
         self._fd: Optional[_FlatIO] = None
@@ -195,6 +206,12 @@ class Torrent:
         # it (bits are set only after their piece's data write returns).
         self._bits_dirty = False
         self._bits_flusher: Optional[asyncio.Task] = None
+        # Cumulative per-piece stage walls for the dispatcher's
+        # torrent_summary: how long pieces spent parked on verify and on
+        # the data write. Pieces pipeline, so these overlap and sum past
+        # the pull's wall: stage costs, not a timeline.
+        self.verify_wall = 0.0
+        self.write_wall = 0.0
 
     # -- introspection -----------------------------------------------------
 
@@ -203,8 +220,18 @@ class Torrent:
         return self.metainfo.digest
 
     @property
+    def info_hash(self):
+        return self.metainfo.info_hash
+
+    @property
     def num_pieces(self) -> int:
         return self.metainfo.num_pieces
+
+    @property
+    def blob_path(self) -> str:
+        """Filesystem path of the backing file (the committed cache path
+        once complete)."""
+        return self._path
 
     def complete(self) -> bool:
         return self._status is None or self._status.complete()
@@ -214,6 +241,21 @@ class Torrent:
 
     def missing_pieces(self) -> list[int]:
         return [] if self._status is None else self._status.missing()
+
+    def num_pieces_complete(self) -> int:
+        return self.num_pieces if self._status is None else self._status.count()
+
+    def bitfield(self) -> bytes:
+        """The piece bitfield a handshake carries (the sidecar's layout)."""
+        if self._status is None:
+            # Memoized: a seeder sends it on every inbound handshake.
+            if self._full_bits is None:
+                full = PieceStatusMetadata(self.num_pieces)
+                for i in range(self.num_pieces):
+                    full.set(i)
+                self._full_bits = bytes(full.bits)
+            return self._full_bits
+        return bytes(self._status.bits)
 
     # -- pieces ------------------------------------------------------------
 
@@ -245,6 +287,16 @@ class Torrent:
                 if self._fd_closed and self._fd_refs == 0 and self._fd is not None:
                     self._fd.close()
                     self._fd = None
+
+    def release_fd(self) -> None:
+        """Drop the cached IO handle if no IO is in flight; the next piece
+        IO reopens it. The dispatcher calls this when a torrent's last
+        peer leaves, so a node seeding many blobs holds fds only for
+        torrents with live conns."""
+        with self._fd_lock:
+            if self._fd_refs == 0 and self._fd is not None and not self._fd_closed:
+                self._fd.close()
+                self._fd = None
 
     def close(self) -> None:
         """Flush any unpersisted bitfield and retire the fd. Only
@@ -280,6 +332,13 @@ class Torrent:
                 self._fd.close()
                 self._fd = None
 
+    def promote(self, path: str) -> None:
+        """Repoint a spool-backed torrent at its committed path (the
+        commit renamed the spool into the cache, same inode)."""
+        with self._fd_lock:
+            self._path = path
+            self.spool_backed = False
+
     def read_piece(self, i: int) -> bytes:
         if not self.has_piece(i):
             raise PieceError(f"piece {i} not present")
@@ -303,14 +362,18 @@ class Torrent:
                 f"piece {i}: wrong length {len(data)} != "
                 f"{self.metainfo.piece_length_of(i)}"
             )
+        t0 = time.perf_counter()
         if not await self._verifier.verify(data, self.metainfo.piece_hash(i)):
             raise PieceError(f"piece {i}: digest mismatch")
+        self.verify_wall += time.perf_counter() - t0
         if self._status is None or self._status.has(i):
             return False  # duplicate arrival
         # The data write runs outside the lock: pieces occupy disjoint
         # offsets, so concurrent pwrites never conflict. Completion cannot
         # race this write: piece i's bit is only set below.
+        t0 = time.perf_counter()
         await asyncio.to_thread(self._write_at, i, data)
+        self.write_wall += time.perf_counter() - t0
         async with self._lock:
             # Re-check under the lock: a concurrent writer of the same
             # final piece may have completed the torrent meanwhile.
@@ -355,13 +418,29 @@ class Torrent:
                 )
                 self._bits_dirty = False
 
+    async def read_piece_async(self, i: int) -> bytes:
+        """Off-loop :meth:`read_piece` for pump-context reads."""
+        return await asyncio.to_thread(self.read_piece, i)
+
+    async def flush_bits(self) -> None:
+        """Persist the piece bitfield now (off-loop), ahead of the
+        debounced flusher."""
+        async with self._lock:
+            if self._status is not None and self._bits_dirty:
+                await asyncio.to_thread(
+                    self.store.set_metadata, self.metainfo.digest, self._status
+                )
+                self._bits_dirty = False
+
 
 class AgentTorrentArchive:
-    """Download-side archive: creates resumable torrents from metainfo."""
+    """Download-side archive: creates resumable torrents from metainfo.
+    With no ``verifier`` it verifies on the card (``BatchedVerifier()``,
+    the ``cuda`` hasher)."""
 
-    def __init__(self, store: CAStore, verifier: BatchedVerifier):
+    def __init__(self, store: CAStore, verifier: BatchedVerifier | None = None):
         self.store = store
-        self.verifier = verifier
+        self.verifier = verifier or BatchedVerifier()
 
     def create_torrent(self, metainfo: MetaInfo) -> Torrent:
         d = metainfo.digest

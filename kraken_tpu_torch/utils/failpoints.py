@@ -50,6 +50,11 @@ KNOWN_FAILPOINTS = frozenset({
     "ingest.window.read",
     "ingest.window.transfer",
     "origin.ingest.device_fail",
+    "p2p.conn.disconnect",
+    "p2p.conn.recv.corrupt",
+    "p2p.conn.send.delay",
+    "p2p.pex.drop",
+    "p2p.pex.flood",
 })
 
 

@@ -2,13 +2,15 @@
 
 The port's own copy of the typed registry in ``kraken_tpu.utils.metrics``
 (stdlib only), with the same metric names, so a dashboard reads a GPU node
-as it reads a TPU one. The HTTP mux, exemplars and the profiling route
+as it reads a TPU one, and the throttled failure meter of the control loops
+(:class:`FailureMeter`). The HTTP mux, exemplars and the profiling route
 wait for the server slice.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterable
 
 _DEFAULT_BUCKETS = (
@@ -176,3 +178,40 @@ def record_hash_pool_metrics(
         "hash_pool_queue_depth",
         "Hash tasks waiting for a free pool worker",
     ).set(queued, pool=pool)
+
+
+class FailureMeter:
+    """Counter + throttled WARN for control loops that must swallow
+    failures to keep running (the scheduler's announce loop).
+
+    Every failure counts on the registry; one warning a
+    ``throttle_seconds`` is logged, with a count of what it suppressed,
+    so a dead tracker is visible without a 1 s retry loop flooding the
+    log."""
+
+    def __init__(
+        self,
+        name: str,
+        help_: str,
+        logger,
+        throttle_seconds: float = 30.0,
+    ):
+        self.counter = REGISTRY.counter(name, help_)
+        self._log = logger
+        self._throttle = throttle_seconds
+        self._last_warn = -float("inf")
+        self._suppressed = 0
+
+    def record(self, what: str, exc: BaseException) -> None:
+        self.counter.inc()
+        now = time.monotonic()
+        if now - self._last_warn >= self._throttle:
+            extra = (
+                f" ({self._suppressed} similar suppressed)"
+                if self._suppressed else ""
+            )
+            self._log.warning("%s failed: %r%s", what, exc, extra)
+            self._last_warn = now
+            self._suppressed = 0
+        else:
+            self._suppressed += 1

@@ -1,5 +1,6 @@
 """The port stands alone: ``kraken_tpu_torch`` (and ``chip_smoke.py``)
-import nothing of JAX or ``kraken_tpu``, and its entry points go to the
+import nothing of JAX or ``kraken_tpu``, nor ``msgpack``, ``yaml`` or
+``aiohttp``, which the card machine lacks, and its entry points go to the
 card unless the caller asks for the CPU."""
 
 import ast
@@ -13,15 +14,18 @@ import pytest
 import torch
 
 import kraken_tpu_torch as kt
+import kraken_tpu_torch.core.hasher as hasher_mod
 from kraken_tpu_torch.bench.transpose import decompose
 from kraken_tpu_torch.origin.dedup import ChunkRouter
 
 REPO = Path(__file__).resolve().parent.parent
 
 
+FORBIDDEN = ("jax", "jaxlib", "kraken_tpu", "msgpack", "yaml", "aiohttp")
+
+
 def _is_forbidden(module: str) -> bool:
-    top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "kraken_tpu")
+    return module.split(".")[0] in FORBIDDEN
 
 
 def _imports(path: Path) -> list[str]:
@@ -50,9 +54,29 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
 _SLICE = r"""
 import asyncio, json, sys, tempfile
 import kraken_tpu_torch as kt
+import kraken_tpu_torch.core.hasher as hasher_mod
 import kraken_tpu_torch.core.ingest
 import kraken_tpu_torch.native
 import kraken_tpu_torch.utils.failpoints
+import kraken_tpu_torch.core.peer
+import kraken_tpu_torch.p2p.announcequeue
+import kraken_tpu_torch.p2p.conn
+import kraken_tpu_torch.p2p.connstate
+import kraken_tpu_torch.p2p.dispatch
+import kraken_tpu_torch.p2p.networkevent
+import kraken_tpu_torch.p2p.pex
+import kraken_tpu_torch.p2p.piecerequest
+import kraken_tpu_torch.p2p.scheduler
+import kraken_tpu_torch.p2p.wire
+import kraken_tpu_torch.utils.backoff
+import kraken_tpu_torch.utils.bandwidth
+import kraken_tpu_torch.utils.dedup
+import kraken_tpu_torch.utils.msgpack_lite
+import kraken_tpu_torch.utils.profiler
+import kraken_tpu_torch.utils.slo
+import kraken_tpu_torch.utils.trace
+from kraken_tpu_torch.core.peer import PeerID, PeerInfo
+from kraken_tpu_torch.p2p.scheduler import Scheduler, SchedulerConfig
 
 blob = bytes(range(256)) * 41
 d = kt.Digest.from_bytes(blob)
@@ -88,7 +112,40 @@ with tempfile.TemporaryDirectory() as root:
     index = kt.DedupIndex(o, hasher=kt.CPUPieceHasher(), params=kt.CDCParams(64, 256, 1024), device="cpu")
     record = index.add_blob_sync(d2)
     assert index.similar(d2) == [] and index.stats()["blobs"] == 1
-mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kraken_tpu")]
+    # The swarm: a port seeder and leecher over loopback, frames through
+    # the port's own msgpack codec.
+    peers = {}
+
+    class Tracker:
+        async def get(self, namespace, digest):
+            return mi
+
+        async def announce(self, digest, h, namespace, complete):
+            return [p for p in peers.values() if p.port], 0.1
+
+    def peer(name, archive):
+        s = Scheduler(PeerID(name * 40), "127.0.0.1", 0, archive, Tracker(), Tracker(),
+                      config=SchedulerConfig(announce_interval_seconds=0.1))
+        return s
+
+    async def swarm():
+        a2 = kt.CAStore(root + "/a2")
+        seeder = peer("1", kt.OriginTorrentArchive(o, v))
+        leecher = peer("2", kt.AgentTorrentArchive(a2, v))
+        await seeder.start()
+        await leecher.start()
+        peers["s"] = PeerInfo(seeder.peer_id, "127.0.0.1", seeder.port)
+        try:
+            seeder.seed(mi, "ns")
+            await asyncio.wait_for(leecher.download("ns", d), 30)
+        finally:
+            await seeder.stop()
+            await leecher.stop()
+        return a2.read_cache_file(d)
+
+    assert asyncio.run(swarm()) == blob
+mods = [m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "kraken_tpu", "msgpack", "yaml", "aiohttp")]
 print(json.dumps({"pieces": mi.num_pieces, "ingest_pieces": mi2.num_pieces,
                   "chunks": int(record.fps.size), "forbidden": mods}))
 """
@@ -118,6 +175,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
         kt.Generator(kt.CAStore(str(tmp_path)))
     with pytest.raises(RuntimeError, match="CUDA"):
         kt.BatchedVerifier()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kt.AgentTorrentArchive(kt.CAStore(str(tmp_path)))
     store = kt.CAStore(str(tmp_path))
     params = kt.CDCParams(64, 256, 1024)
     for entry in (
@@ -137,3 +196,21 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
     assert kt.MinHasher(device="cpu").device == torch.device("cpu")
     index = kt.DedupIndex(store, device="cpu")
     assert index.hasher.name == "cuda" and index.hasher.device == torch.device("cpu")
+
+
+def test_the_agent_archive_verifies_on_the_card_by_default(monkeypatch, tmp_path):
+    """With no verifier, ``AgentTorrentArchive`` builds ``BatchedVerifier()``,
+    whose hasher is the ``cuda`` one."""
+    made = []
+
+    class Probe(kt.TorchPieceHasher):
+        def __init__(self):
+            super().__init__(device="cpu")
+            made.append(self)
+
+    monkeypatch.setattr(hasher_mod, "_INSTANCES", {})
+    monkeypatch.setitem(hasher_mod._REGISTRY, "cuda", Probe)
+    archive = kt.AgentTorrentArchive(kt.CAStore(str(tmp_path)))
+    assert made and archive.verifier.hasher is made[0]
+    assert archive.verifier.hasher.name == "cuda"
+    assert archive.verifier._path_label == "cuda"
