@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs eleven phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs twelve phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -122,12 +122,39 @@ without a result:
    leg prints its wall, (a) the agents' pull p50 and p99, (b) GB/s, the
    launches, rows a launch, the flush sizes, the summed seconds of the
    ``hash_batch`` calls and the part of the wall some verify ran in.
+12. ``tracker`` -- phase 11(a)'s flash crowd (BASELINE.json config 2: the
+   same two layers, 4 MiB pieces, 10 agents at t = 0, the seeder's
+   metainfo from ``Generator(store)`` on the card) through three port
+   ``TrackerServer``s, each served by ``http_lite.serve`` on 127.0.0.1
+   (0.5 s announce interval, default handout, ``fleet_addrs`` the three
+   addresses, so a non-owner forwards announces to the shard owner). Their
+   ``origin_cluster`` (``FleetOrigin``) hands out the card-made metainfo
+   and counts its fetches. Every peer's metainfo and announce client is
+   ``make_tracker_client(",".join(addrs))``, a ``TrackerFleetClient``, so
+   the agents fetch metainfo through the trackers' proxy and its cache.
+   The fleet's three ports are picked (``fleet_ports``) so that the
+   smaller layer's owner is the tracker the larger layer does not fail
+   over to. The tracker that ``rendezvous_hash`` names for the larger
+   layer is stopped (its runner's ``cleanup()`` and ``close()``) when the
+   first agent holds a piece of that layer, or at 1 s. Gates: every blob
+   byte-identical; ``sha256_uniform`` launched for the metainfo and, in
+   the pulls, ``sha256_ragged`` at least once an agent and layer and the
+   rows on the card covering every needed piece, no host verify batch;
+   the kill before the first pull ended; both survivors recording
+   announces after it; a fleet client's breaker naming the dead owner
+   with its failures (``healthcheck.debug_snapshot()``). It prints the
+   wall, pull p50 and p99, the kill's time and the pieces done by then,
+   announces per tracker before and after the kill, the fleet clients'
+   failover and outage counters, the proxy's metainfo fetches and cache
+   hits, the launches, rows a launch, verify's part of the wall, and the
+   bytes on the wire against those needed.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
-swarm leg, and each seeder's metainfo) and read just after it: every
+swarm leg and the tracker phase's pulls, and each seeder's metainfo) and
+read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -159,6 +186,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -539,8 +567,10 @@ SWARM_TIMEOUT_S = {"flash_crowd": 180.0, "pair": 300.0, "corrupt": 120.0}
 
 class SwarmTracker:
     """In-memory announce and metainfo service shared by the peers of a
-    leg, on the model of ``tests/test_swarm.py``'s ``FakeTracker`` (the
-    port's tracker is a later slice)."""
+    leg, on the model of ``tests/test_swarm.py``'s ``FakeTracker``: phase
+    11's baseline with no HTTP in the way, beside phase 12, where the same
+    peers announce to the port's own tracker fleet
+    (``kraken_tpu_torch.tracker``)."""
 
     def __init__(self, interval: float):
         self.interval = interval
@@ -578,6 +608,12 @@ class HashBatchTimer:
         self.calls: list[tuple[float, float, int]] = []
         self.running = 0
         hasher.hash_batch = self
+
+    @classmethod
+    def of(cls, hasher) -> "HashBatchTimer":
+        """The hasher's timer: the one already in place, or a new one."""
+        timer = hasher.hash_batch
+        return timer if isinstance(timer, cls) else cls(hasher)
 
     def __call__(self, pieces):
         with self._lock:
@@ -677,6 +713,56 @@ class SwarmCounters:
         }
 
 
+def store_with(root: str, name: str, blobs: dict, lie: bool = False):
+    """A fresh ``CAStore`` holding ``blobs`` (digest -> bytes) committed;
+    ``lie``: without checking the bytes against their digest."""
+    from kraken_tpu_torch import CAStore
+
+    store = CAStore(os.path.join(root, name))
+    for d, data in blobs.items():
+        uid = store.create_upload()
+        store.write_upload_chunk(uid, 0, data)
+        store.commit_upload(uid, d, verify=not lie)
+    return store
+
+
+def card_metainfo(store, blobs: dict) -> tuple[list, dict]:
+    """The seeder's metainfo through ``Generator(store)`` on the card, its
+    piece hashes held against hashlib over the seeder's bytes, so the
+    agents' verify answers to a reference the kernel does not share.
+    Returns the metainfos and the launches their generation made, counted
+    from zero."""
+    from kraken_tpu_torch import Generator
+    from kraken_tpu_torch.ops import sha256_cuda
+
+    sha256_cuda.reset_launches()
+    gen = Generator(store)
+    mis = [gen.generate_sync(d) for d in blobs]
+    launches = dict(sha256_cuda.LAUNCHES)
+    if not launches["sha256_uniform"]:
+        raise AssertionError("swarm: the seeder's metainfo skipped sha256_uniform")
+    for mi in mis:
+        if mi.piece_length != PIECE:
+            raise AssertionError(f"swarm: piece length {mi.piece_length}")
+        view = memoryview(blobs[mi.digest])
+        want = b"".join(hashlib.sha256(view[o:o + PIECE]).digest()
+                        for o in range(0, len(view), PIECE))
+        if mi.piece_hashes != want:
+            raise AssertionError(f"swarm: metainfo of {mi.digest.hex[:12]} != hashlib")
+    return mis, launches
+
+
+def swarm_layers() -> dict:
+    """BASELINE.json config 2's two layers (``SWARM_LAYERS``), seeded."""
+    from kraken_tpu_torch import Digest
+
+    layers = {}
+    for i, (_name, size) in enumerate(SWARM_LAYERS):
+        data = np.random.default_rng(SEED + 20 + i).bytes(size)
+        layers[Digest.from_bytes(data)] = data
+    return layers
+
+
 def check_swarm_leg(leg: str, r: dict, agents: int, layers: int, pieces: int) -> None:
     """The gates of a leg: ``pieces`` is what its agents needed in all."""
     ragged = r["launches"]["sha256_ragged"]
@@ -699,26 +785,16 @@ async def swarm_legs(root: str, card_name_power: str) -> dict:
     """Phase 11: port schedulers pull over loopback in this process's one
     loop, every agent verifying on the card. Returns each leg's result."""
     from kraken_tpu_torch import (
-        AgentTorrentArchive, BatchedVerifier, CAStore, Digest, Generator,
-        OriginTorrentArchive, get_hasher,
+        AgentTorrentArchive, BatchedVerifier, CAStore, Digest, OriginTorrentArchive,
+        get_hasher,
     )
     from kraken_tpu_torch.core.peer import PeerID
-    from kraken_tpu_torch.ops import sha256_cuda
     from kraken_tpu_torch.p2p.networkevent import Producer
     from kraken_tpu_torch.p2p.scheduler import Scheduler, SchedulerConfig
 
     hasher = get_hasher("cuda")  # what every agent's verifier takes
-    timer = HashBatchTimer(hasher)
-    counters = SwarmCounters(timer)
+    counters = SwarmCounters(HashBatchTimer.of(hasher))
     results = {}
-
-    def store_with(name: str, blobs: dict, lie: bool = False) -> CAStore:
-        store = CAStore(os.path.join(root, name))
-        for d, data in blobs.items():
-            uid = store.create_upload()
-            store.write_upload_chunk(uid, 0, data)
-            store.commit_upload(uid, d, verify=not lie)
-        return store
 
     def peer(tracker, store, archive_cls, events=None):
         ref: dict = {}
@@ -733,24 +809,8 @@ async def swarm_legs(root: str, card_name_power: str) -> dict:
         return s
 
     def metainfo(tracker, store, blobs: dict) -> tuple[list, dict]:
-        """The seeder's metainfo through ``Generator(store)`` on the card,
-        its piece hashes held against hashlib over the seeder's bytes, so
-        the agents' verify answers to a reference the kernel does not
-        share."""
-        sha256_cuda.reset_launches()
-        gen = Generator(store)
-        mis = [gen.generate_sync(d) for d in blobs]
-        launches = dict(sha256_cuda.LAUNCHES)
-        if not launches["sha256_uniform"]:
-            raise AssertionError("swarm: the seeder's metainfo skipped sha256_uniform")
+        mis, launches = card_metainfo(store, blobs)
         for mi in mis:
-            if mi.piece_length != PIECE:
-                raise AssertionError(f"swarm: piece length {mi.piece_length}")
-            view = memoryview(blobs[mi.digest])
-            want = b"".join(hashlib.sha256(view[o:o + PIECE]).digest()
-                            for o in range(0, len(view), PIECE))
-            if mi.piece_hashes != want:
-                raise AssertionError(f"swarm: metainfo of {mi.digest.hex[:12]} != hashlib")
             tracker.metainfos[mi.digest.hex] = mi
         return mis, launches
 
@@ -769,11 +829,8 @@ async def swarm_legs(root: str, card_name_power: str) -> dict:
 
     # (a) Flash crowd: one origin-style seeder, 10 agents, both layers at t = 0.
     tracker = SwarmTracker(SWARM_TRACKER_INTERVAL)
-    layers = {}
-    for i, (name, size) in enumerate(SWARM_LAYERS):
-        data = np.random.default_rng(SEED + 20 + i).bytes(size)
-        layers[Digest.from_bytes(data)] = data
-    ostore = store_with("origin", layers)
+    layers = swarm_layers()
+    ostore = store_with(root, "origin", layers)
     mis, gen_launches = metainfo(tracker, ostore, layers)
     seeder = peer(tracker, ostore, OriginTorrentArchive)
     agents = []
@@ -817,7 +874,7 @@ async def swarm_legs(root: str, card_name_power: str) -> dict:
     tracker = SwarmTracker(SWARM_TRACKER_INTERVAL)
     data = np.random.default_rng(SEED + 30).bytes(SWARM_PAIR_BYTES)
     d = Digest.from_bytes(data)
-    ostore = store_with("origin", {d: data})
+    ostore = store_with(root, "origin", {d: data})
     (mi,), gen_launches = metainfo(tracker, ostore, {d: data})
     seeder = peer(tracker, ostore, OriginTorrentArchive)
     astore = CAStore(os.path.join(root, "agent"))
@@ -849,9 +906,10 @@ async def swarm_legs(root: str, card_name_power: str) -> dict:
     d = Digest.from_bytes(data)
     bad = bytearray(data)
     bad[SWARM_CORRUPT_PIECE * PIECE + 1234] ^= 0x01
-    good_store = store_with("good", {d: data})
+    good_store = store_with(root, "good", {d: data})
     (mi,), gen_launches = metainfo(tracker, good_store, {d: data})
-    evil = peer(tracker, store_with("evil", {d: bytes(bad)}, lie=True), OriginTorrentArchive)
+    evil = peer(tracker, store_with(root, "evil", {d: bytes(bad)}, lie=True),
+                OriginTorrentArchive)
     good = peer(tracker, good_store, OriginTorrentArchive)
     events = Producer("agent")
     astore = CAStore(os.path.join(root, "agent"))
@@ -889,6 +947,259 @@ async def swarm_legs(root: str, card_name_power: str) -> dict:
           "timeout_s": SWARM_TIMEOUT_S["corrupt"], "card": card_name_power, **r})
     shutil.rmtree(root, ignore_errors=True)
     return results
+
+
+# -- phase 12, the tracker fleet ---------------------------------------------
+TRACKERS = 3
+TRACKER_KILL_S = 1.0  # the latest the owner dies, if no agent has a piece yet
+TRACKER_TIMEOUT_S = 180.0
+TRACKER_SETTLE_S = 30.0  # for the breakers to name the dead owner
+
+
+class FleetOrigin:
+    """The trackers' ``origin_cluster``: hands out the metainfo the seeder's
+    ``Generator`` built on the card, and counts the fetches."""
+
+    def __init__(self, metainfos):
+        self.metainfos = {mi.digest.hex: mi for mi in metainfos}
+        self.fetches = 0
+
+    async def get_metainfo(self, namespace, d):
+        self.fetches += 1
+        return self.metainfos[d.hex]
+
+
+class CountingCache:
+    """A tracker's metainfo TTL cache, counting its lookups and hits."""
+
+    def __init__(self, cache):
+        self._cache = cache
+        self.lookups = 0
+        self.hits = 0
+
+    def get(self, key):
+        self.lookups += 1
+        hit = self._cache.get(key)
+        self.hits += hit is not None
+        return hit
+
+    def put(self, key, value) -> None:
+        self._cache.put(key, value)
+
+
+def fleet_ports(big_hash: str, small_hash: str, candidates: int = 16) -> list[int]:
+    """Three free loopback ports, picked so that the smaller layer's owner
+    is the tracker the larger layer does NOT fail over to: each tracker then
+    has announces to answer before the kill (two of them) and after it (both
+    survivors). Which ports the fleet gets is all that is picked: the
+    owners follow from ``rendezvous_hash`` over the addresses."""
+    from itertools import combinations
+
+    from kraken_tpu_torch.placement.hrw import rendezvous_hash
+
+    socks = []
+    try:
+        for _ in range(candidates):
+            sk = socket.socket()
+            sk.bind(("127.0.0.1", 0))
+            socks.append(sk)
+        ports = [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+    for trio in combinations(ports, TRACKERS):
+        addrs = [f"127.0.0.1:{p}" for p in trio]
+        ranked = rendezvous_hash(big_hash, addrs, k=TRACKERS)
+        if rendezvous_hash(small_hash, addrs, k=1)[0] == ranked[2]:
+            return list(trio)
+    raise AssertionError("tracker: no fleet layout among the candidate ports")
+
+
+async def tracker_fleet(root: str, card_name_power: str) -> dict:
+    """Phase 12: the flash crowd of phase 11(a) announcing to, and fetching
+    metainfo through, three port trackers over the port's HTTP/1.1, while
+    the larger layer's shard owner is stopped mid-pull."""
+    from kraken_tpu_torch import AgentTorrentArchive, BatchedVerifier, CAStore, OriginTorrentArchive
+    from kraken_tpu_torch import get_hasher
+    from kraken_tpu_torch.core.peer import PeerID
+    from kraken_tpu_torch.p2p.scheduler import Scheduler, SchedulerConfig
+    from kraken_tpu_torch.placement import healthcheck
+    from kraken_tpu_torch.placement.hrw import rendezvous_hash
+    from kraken_tpu_torch.tracker.client import TrackerFleetClient, make_tracker_client
+    from kraken_tpu_torch.tracker.peerstore import InMemoryPeerStore
+    from kraken_tpu_torch.tracker.server import TrackerServer
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.metrics import REGISTRY
+
+    hasher = get_hasher("cuda")
+    counters = SwarmCounters(HashBatchTimer.of(hasher))
+    layers = swarm_layers()
+    ostore = store_with(root, "origin", layers)
+    mis, gen_launches = card_metainfo(ostore, layers)
+    small, big = sorted(mis, key=lambda mi: mi.length)
+    origin = FleetOrigin(mis)
+
+    class CountingStore(InMemoryPeerStore):
+        """A tracker's peer store: the time of every announce it recorded
+        (forwarded ones included)."""
+
+        def __init__(self):
+            super().__init__()
+            self.announces: list[float] = []
+
+        async def update(self, info_hash, peer, now=None):
+            self.announces.append(time.perf_counter())
+            await super().update(info_hash, peer, now)
+
+    ports = fleet_ports(big.info_hash.hex, small.info_hash.hex)
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    trackers = []
+    for port in ports:
+        server = TrackerServer(peer_store=CountingStore(), origin_cluster=origin,
+                               announce_interval_seconds=SWARM_TRACKER_INTERVAL)
+        server._metainfo_cache = CountingCache(server._metainfo_cache)
+        runner, bound = await http_lite.serve(server.make_app(), "127.0.0.1", port)
+        trackers.append({"addr": f"127.0.0.1:{bound}", "server": server, "runner": runner})
+    for t in trackers:
+        t["server"].set_fleet(addrs, t["addr"])
+    owner = rendezvous_hash(big.info_hash.hex, addrs, k=1)[0]
+    victim = next(t for t in trackers if t["addr"] == owner)
+
+    def peer(store, archive_cls):
+        pid = PeerID(os.urandom(20).hex())
+        client = make_tracker_client(",".join(addrs), pid, "127.0.0.1", 0)
+        if not isinstance(client, TrackerFleetClient):
+            raise AssertionError(f"tracker: {type(client).__name__} is not a fleet client")
+        verifier = BatchedVerifier(hasher=hasher, max_delay_seconds=0.002)
+        s = Scheduler(pid, "127.0.0.1", 0, archive_cls(store, verifier), client, client,
+                      config=SchedulerConfig())
+        return s, client
+
+    seeder = peer(ostore, OriginTorrentArchive)
+    agents = [peer(CAStore(os.path.join(root, f"agent{i}")), AgentTorrentArchive)
+              for i in range(SWARM_AGENTS)]
+    peers = [seeder] + agents
+    failovers = REGISTRY.counter("tracker_fleet_failovers_total")
+    fleet_metrics = ("tracker_outages_total", "tracker_outage_seconds_total",
+                     "announce_timeouts_total")
+    before = {"announce": failovers.value(op="announce"),
+              "tracker_metainfo": failovers.value(op="tracker_metainfo"),
+              **{m: REGISTRY.counter(m).value() for m in fleet_metrics}}
+
+    def pieces_of(mi) -> list[int]:
+        """Each agent's pieces of ``mi`` done (verified and written)."""
+        h = mi.info_hash
+        return [s._controls[h].torrent.num_pieces_complete() if h in s._controls else 0
+                for s, _c in agents]
+
+    kill: dict = {}
+
+    async def killer(t0):
+        while time.perf_counter() - t0 < TRACKER_KILL_S and max(pieces_of(big)) < 1:
+            await asyncio.sleep(0.002)
+        kill["at_s"] = time.perf_counter() - t0
+        kill["t"] = time.perf_counter()
+        kill["pieces_done"] = {"alpine": sum(pieces_of(small)), "ubuntu": sum(pieces_of(big))}
+        kill["agents_holding_an_ubuntu_piece"] = sum(1 for n in pieces_of(big) if n)
+        await victim["runner"].cleanup()
+        await victim["server"].close()
+        kill["stop_s"] = time.perf_counter() - kill["t"]
+
+    async def pull(s):
+        t0 = time.perf_counter()
+        await asyncio.gather(*(s.download(SWARM_NS, d) for d in layers))
+        return time.perf_counter() - t0
+
+    for s, client in peers:
+        await s.start()
+        client.port = s.port  # the p2p port is known once the scheduler binds
+    try:
+        for mi in mis:
+            seeder[0].seed(mi, SWARM_NS)
+        counters.start()
+        t0 = time.perf_counter()
+        kill_task = asyncio.create_task(killer(t0))
+        secs = await asyncio.wait_for(asyncio.gather(*(pull(s) for s, _c in agents)),
+                                      TRACKER_TIMEOUT_S)
+        r = await counters.stop()
+        await kill_task
+        if kill["t"] - t0 >= min(secs):
+            raise AssertionError(f"tracker: the kill at {kill['at_s']:.3f} s landed after a "
+                                 f"pull ended ({min(secs):.3f} s)")
+        # The peers go on announcing as seeders: wait until every survivor
+        # has answered announces since the kill and a breaker names the
+        # dead owner with its failures.
+        survivors = [t for t in trackers if t is not victim]
+        settle_t0 = time.perf_counter()
+        named = {}
+        while time.perf_counter() - settle_t0 < TRACKER_SETTLE_S:
+            snap = healthcheck.debug_snapshot()
+            named = {c.health.name: snap[c.health.name]["hosts"][owner]
+                     for _s, c in peers
+                     if owner in snap.get(c.health.name, {}).get("hosts", {})}
+            after = [sum(1 for a in t["server"].peers.announces if a > kill["t"])
+                     for t in survivors]
+            if named and all(after):
+                break
+            await asyncio.sleep(0.05)
+        settle_s = time.perf_counter() - settle_t0
+    finally:
+        for s, client in peers:
+            await s.stop()
+            await client.close()
+        for t in trackers:
+            if t is not victim:
+                await t["runner"].cleanup()
+                await t["server"].close()
+
+    for i in range(SWARM_AGENTS):
+        store = CAStore(os.path.join(root, f"agent{i}"))
+        for d, data in layers.items():
+            if store.read_cache_file(d) != data:
+                raise AssertionError(f"tracker: agent {i}'s {d.hex[:12]} is not byte-identical")
+    pieces = SWARM_AGENTS * sum(mi.num_pieces for mi in mis)
+    check_swarm_leg("tracker", r, SWARM_AGENTS, len(layers), pieces)
+    if not gen_launches["sha256_uniform"]:
+        raise AssertionError("tracker: the seeder's metainfo launched no sha256_uniform")
+    announces = {
+        t["addr"]: {"role": ("dead owner" if t is victim else "survivor"),
+                    "owns": [n for n, mi in zip(("alpine", "ubuntu"), (small, big))
+                             if rendezvous_hash(mi.info_hash.hex, addrs, k=1)[0] == t["addr"]],
+                    "before_kill": sum(1 for a in t["server"].peers.announces if a <= kill["t"]),
+                    "after_kill": sum(1 for a in t["server"].peers.announces if a > kill["t"])}
+        for t in trackers}
+    dumb = [a for a, n in announces.items() if n["role"] == "survivor" and not n["after_kill"]]
+    if dumb:
+        raise AssertionError(f"tracker: survivors {dumb} answered no announce after the kill")
+    if not any(h["consecutive_fails"] or h["state"] != "closed" for h in named.values()):
+        raise AssertionError(f"tracker: no breaker names the dead owner {owner}: {named}")
+    fleet = {"tracker_fleet_failovers_total": {
+                 op: failovers.value(op=op) - before[op]
+                 for op in ("announce", "tracker_metainfo")},
+             **{m: REGISTRY.counter(m).value() - before[m] for m in fleet_metrics},
+             "tracker_outage": REGISTRY.gauge("tracker_outage").value()}
+    caches = [t["server"]._metainfo_cache for t in trackers]
+    r.update({
+        "pull_s_p50": float(np.percentile(secs, 50)), "pull_s_p99": float(np.percentile(secs, 99)),
+        "pull_s": secs, "needed_pieces": pieces, "metainfo_launches": gen_launches,
+        "bytes_needed": SWARM_AGENTS * sum(mi.length for mi in mis),
+        "kill": {k: v for k, v in kill.items() if k != "t"}, "owner": owner,
+        "announces": announces, "fleet": fleet,
+        "breakers_naming_the_owner": len(named),
+        "owner_in_breakers": sorted({(h["state"], h["consecutive_fails"])
+                                     for h in named.values()}),
+        "proxy": {"metainfo_fetches": origin.fetches,
+                  "metainfo_lookups": sum(c.lookups for c in caches),
+                  "metainfo_cache_hits": sum(c.hits for c in caches)},
+        "settle_s": settle_s})
+    r["wire_over_needed"] = r["bytes_down"] / r["bytes_needed"]
+    emit({"phase": "tracker",
+          "config": f"BASELINE.json config 2 through {TRACKERS} port trackers over http_lite, "
+                    f"{SWARM_AGENTS} agents, the larger layer's shard owner stopped mid-pull",
+          "layers": {n: s for n, s in SWARM_LAYERS},
+          "pieces": [mi.num_pieces for mi in mis], "piece_length": PIECE,
+          "timeout_s": TRACKER_TIMEOUT_S, "card": card_name_power, **r})
+    return r
 
 
 def main() -> int:
@@ -1667,6 +1978,16 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     swarm_secs = time.perf_counter() - swarm_start
 
+    # -- 12. tracker: the flash crowd through a tracker fleet over HTTP -----
+    gc.collect()
+    work.mkdir(exist_ok=True)
+    tracker_start = time.perf_counter()
+    try:
+        fleet = asyncio.run(tracker_fleet(tempfile.mkdtemp(dir=work), card.name_power))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    tracker_secs = time.perf_counter() - tracker_start
+
     print(card.name_power, flush=True)
     def sha_entry(leg, kernel):
         """A SHA-256 entry's bounds, and its per-block loop as built."""
@@ -1686,12 +2007,16 @@ def main() -> int:
          "swarm_metainfo_launches": {leg: r["metainfo_launches"]["sha256_uniform"]
                                      for leg, r in swarm.items()},
          "swarm_launches": {leg: r["launches"]["sha256_uniform"] for leg, r in swarm.items()},
+         "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_uniform"],
+         "tracker_launches": fleet["launches"]["sha256_uniform"],
          **sha_entry(uni_main, ROWS_KERNEL)},
         {"name": "sha256_ragged", **common,
          "replaces": "kraken_tpu/ops/sha256.py:140",
          "launches": main_launches["sha256_ragged"], "ms": rag_main_ms,
          "plain_ms": rag_plain_ms, "ms_at_plain_shape": rag_ms,
          "swarm_launches": {leg: r["launches"]["sha256_ragged"] for leg, r in swarm.items()},
+         "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_ragged"],
+         "tracker_launches": fleet["launches"]["sha256_ragged"],
          **sha_entry(rag_main, ROWS_KERNEL)},
         {"name": "pack_tiles_device", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -1728,6 +2053,7 @@ def main() -> int:
          "ms_at_bench_shape": decomps["bench_shape"]["transpose_only_ms"]},
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
         "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
+        "tracker_seconds": tracker_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

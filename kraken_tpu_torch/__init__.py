@@ -21,8 +21,11 @@ kernel, MinHash sketches and LSH indexes (``ops.minhash``) -- and the P2P
 wire and swarm (``p2p.wire``, ``p2p.conn``, ``p2p.dispatch``, ``p2p.pex``,
 ``p2p.scheduler``): schedulers pull blobs from each other over TCP, each
 agent verifying every received piece on the card, with the wire's headers
-through the port's own MessagePack codec (``utils.msgpack_lite``). Entry
-points run on the card unless the caller asks for the CPU (a CPU hasher,
+through the port's own MessagePack codec (``utils.msgpack_lite``) -- and
+the tracker fleet (``tracker.server``, ``tracker.client``, ``placement``):
+trackers and their clients over the port's own HTTP/1.1
+(``utils.http_lite``), sharded by rendezvous hashing, failing over through
+breakers and deadline budgets. Entry points run on the card unless the caller asks for the CPU (a CPU hasher,
 ``device="cpu"``).
 """
 

@@ -44,6 +44,10 @@ from typing import Optional
 # chaos run fails loudly instead of injecting nothing and reporting green.
 # ``name@suffix`` variants validate by their base name.
 KNOWN_FAILPOINTS = frozenset({
+    "httputil.request.conn_reset",
+    "httputil.request.error",
+    "httputil.request.slow",
+    "httputil.request.truncate_body",
     "ingest.abort",
     "ingest.window.hash",
     "ingest.window.pack",
@@ -55,6 +59,12 @@ KNOWN_FAILPOINTS = frozenset({
     "p2p.conn.send.delay",
     "p2p.pex.drop",
     "p2p.pex.flood",
+    "rpc.hedge.lose",
+    "rpc.link.delay",
+    "rpc.link.drop",
+    "tracker.announce.empty",
+    "tracker.announce.error",
+    "tracker.blackout",
 })
 
 

@@ -44,6 +44,13 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
         REPO / "chip_smoke.py", REPO / "chip_sha256_sweep.py",
     ]
     assert len(files) > 10
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    for module in ("utils/http_lite.py", "utils/httputil.py", "utils/deadline.py",
+                   "utils/lameduck.py", "placement/hrw.py", "placement/hostlist.py",
+                   "placement/hashring.py", "placement/healthcheck.py",
+                   "placement/replicawalk.py", "tracker/peerhandout.py",
+                   "tracker/peerstore.py", "tracker/server.py", "tracker/client.py"):
+        assert f"kraken_tpu_torch/{module}" in scanned, module
     bad = {
         str(f.relative_to(REPO)): m
         for f in files for m in _imports(f) if _is_forbidden(m)
@@ -75,7 +82,12 @@ import kraken_tpu_torch.utils.msgpack_lite
 import kraken_tpu_torch.utils.profiler
 import kraken_tpu_torch.utils.slo
 import kraken_tpu_torch.utils.trace
+import kraken_tpu_torch.placement
+import kraken_tpu_torch.placement.replicawalk
 from kraken_tpu_torch.core.peer import PeerID, PeerInfo
+from kraken_tpu_torch.tracker.client import make_tracker_client
+from kraken_tpu_torch.tracker.server import TrackerServer
+from kraken_tpu_torch.utils import http_lite
 from kraken_tpu_torch.p2p.scheduler import Scheduler, SchedulerConfig
 
 blob = bytes(range(256)) * 41
@@ -144,10 +156,41 @@ with tempfile.TemporaryDirectory() as root:
         return a2.read_cache_file(d)
 
     assert asyncio.run(swarm()) == blob
+
+    # The tracker fleet over the port's HTTP/1.1: two trackers, one fleet
+    # client announcing and fetching metainfo through the proxy.
+    class Origin:
+        async def get_metainfo(self, namespace, digest):
+            return mi
+
+    async def fleet():
+        servers, runners, addrs = [], [], []
+        for _ in range(2):
+            server = TrackerServer(origin_cluster=Origin(), announce_interval_seconds=0.1)
+            runner, port = await http_lite.serve(server.make_app(), "127.0.0.1", 0)
+            servers.append(server)
+            runners.append(runner)
+            addrs.append(f"127.0.0.1:{port}")
+        clients = [make_tracker_client(",".join(addrs), PeerID(c * 40), "127.0.0.1", 7000 + i)
+                   for i, c in enumerate("ab")]
+        try:
+            for c in clients:
+                peers, _ = await c.announce(d, mi.info_hash, "ns", False)
+            got = await clients[0].get("ns", d)
+        finally:
+            for c in clients:
+                await c.close()
+            for runner, server in zip(runners, servers):
+                await runner.cleanup()
+                await server.close()
+        return len(peers), got.serialize() == mi.serialize()
+
+    handout, same_metainfo = asyncio.run(fleet())
+    assert same_metainfo
 mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "kraken_tpu", "msgpack", "yaml", "aiohttp")]
 print(json.dumps({"pieces": mi.num_pieces, "ingest_pieces": mi2.num_pieces,
-                  "chunks": int(record.fps.size), "forbidden": mods}))
+                  "chunks": int(record.fps.size), "handout": handout, "forbidden": mods}))
 """
 
 
@@ -162,7 +205,8 @@ def test_slice_runs_without_jax_or_kraken_tpu_loaded():
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["chunks"] > 1000
-    assert out == {"pieces": 6, "ingest_pieces": 1025, "chunks": out["chunks"], "forbidden": []}
+    assert out == {"pieces": 6, "ingest_pieces": 1025, "chunks": out["chunks"], "handout": 1,
+                   "forbidden": []}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
