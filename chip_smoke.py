@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs twelve phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs thirteen phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -149,11 +149,45 @@ without a result:
    hits, the launches, rows a launch, verify's part of the wall, and the
    bytes on the wire against those needed.
 
+13. ``origin_http`` -- the origin over the port's HTTP/1.1: port
+   ``OriginServer``s on ``http_lite.serve``, each on a fresh ``CAStore``
+   with a ``Generator`` on the ``cuda`` hasher, uploaded to by the port's
+   ``BlobClient`` (16 MiB PATCH bodies; ``TimedClient`` marks the stream,
+   the commit and any resume). First ``http_lite`` alone (256 MiB of PATCH
+   bodies into a sink, a 256 MiB GET), then seven legs: (a) BASELINE.json
+   config 1's 1 GiB to an origin with no ingest pipeline and a
+   ``DedupIndex`` on the card: the metainfo made at commit in one batched
+   pass, the dedup task awaited; (b) the same blob to an origin with
+   ``IngestPipeline(cuda, IngestConfig())``: pieces hashed through the
+   pipeline's windows while the body streams in; which of (a) and (b)
+   acks sooner; (c) 128 MiB to (a)'s origin with ``origin.patch.write``
+   armed at the middle flush: the client sees a 500, HEADs the durable
+   offset, the origin re-adopts the session from its journal, the client
+   re-PATCHes the tail; (d) the 1 GiB back whole, one 206 range and a 416
+   past the end; (e) a 128 MiB blob only in a ``file`` backend, pulled by
+   a ``Refresher`` on a GET miss, and (a)'s blob written back by
+   ``WritebackExecutor``; (f) three origins on one ``Ring``,
+   ``write_quorum: 2``, 128 MiB: the 201 only once a replica holds the
+   blob, then the owner's ``persistedretry`` queue drains replication to
+   the third; (g) a port ``TrackerServer`` whose ``origin_cluster`` is a
+   port ``ClusterClient``, and one agent pulling 64 MiB that (a)'s origin
+   seeds through its ``scheduler=``, verifying on the card. Gates: every
+   blob byte-identical; every metainfo equal to hashlib's piece hashes
+   (``GET /metainfo`` to the port's ``MetaInfo`` bytes over them); each
+   leg's kernels launched; the failpoint fired once and one session
+   re-adopted; a replica held the blob at the quorum's 201 and its
+   metainfo equals the owner's; the agent's metainfo through the
+   tracker's proxy; no hashlib piece hashing
+   (``hasher_pieces_total{hasher="cpu"}``) and no host verify batch in the
+   whole phase. Each leg prints its walls, GB/s, launches by wrapper and
+   checks.
+
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
-swarm leg and the tracker phase's pulls, and each seeder's metainfo) and
+swarm leg and the tracker phase's pulls, and each seeder's metainfo; each
+leg of phase 13) and
 read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -726,6 +760,29 @@ def store_with(root: str, name: str, blobs: dict, lie: bool = False):
     return store
 
 
+def free_ports(n: int) -> list[int]:
+    """``n`` distinct free loopback ports (bound together, then released)."""
+    socks = []
+    try:
+        for _ in range(n):
+            sk = socket.socket()
+            sk.bind(("127.0.0.1", 0))
+            socks.append(sk)
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def hashlib_pieces(data, piece: int) -> bytes:
+    """hashlib's piece hashes, on every core: the reference the card's are
+    held against (not through a hasher, so no hasher counter moves)."""
+    view = memoryview(data)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        return b"".join(ex.map(lambda o: hashlib.sha256(view[o:o + piece]).digest(),
+                               range(0, len(view), piece)))
+
+
 def card_metainfo(store, blobs: dict) -> tuple[list, dict]:
     """The seeder's metainfo through ``Generator(store)`` on the card, its
     piece hashes held against hashlib over the seeder's bytes, so the
@@ -744,10 +801,7 @@ def card_metainfo(store, blobs: dict) -> tuple[list, dict]:
     for mi in mis:
         if mi.piece_length != PIECE:
             raise AssertionError(f"swarm: piece length {mi.piece_length}")
-        view = memoryview(blobs[mi.digest])
-        want = b"".join(hashlib.sha256(view[o:o + PIECE]).digest()
-                        for o in range(0, len(view), PIECE))
-        if mi.piece_hashes != want:
+        if mi.piece_hashes != hashlib_pieces(blobs[mi.digest], PIECE):
             raise AssertionError(f"swarm: metainfo of {mi.digest.hex[:12]} != hashlib")
     return mis, launches
 
@@ -997,17 +1051,7 @@ def fleet_ports(big_hash: str, small_hash: str, candidates: int = 16) -> list[in
 
     from kraken_tpu_torch.placement.hrw import rendezvous_hash
 
-    socks = []
-    try:
-        for _ in range(candidates):
-            sk = socket.socket()
-            sk.bind(("127.0.0.1", 0))
-            socks.append(sk)
-        ports = [sk.getsockname()[1] for sk in socks]
-    finally:
-        for sk in socks:
-            sk.close()
-    for trio in combinations(ports, TRACKERS):
+    for trio in combinations(free_ports(candidates), TRACKERS):
         addrs = [f"127.0.0.1:{p}" for p in trio]
         ranked = rendezvous_hash(big_hash, addrs, k=TRACKERS)
         if rendezvous_hash(small_hash, addrs, k=1)[0] == ranked[2]:
@@ -1200,6 +1244,506 @@ async def tracker_fleet(root: str, card_name_power: str) -> dict:
           "pieces": [mi.num_pieces for mi in mis], "piece_length": PIECE,
           "timeout_s": TRACKER_TIMEOUT_S, "card": card_name_power, **r})
     return r
+
+
+# -- phase 13, the origin over HTTP ------------------------------------------
+# BASELINE.json config 1's blob (1 GiB, 4 MiB pieces) uploaded through the
+# port's BlobClient to port OriginServers on http_lite. The other legs are
+# cut to 128 MiB (resume, refresh, quorum) and 64 MiB (the pull) so that
+# the phase stays near 30 s. ORIGIN_FLUSH is the server's flush batch
+# (origin/server.py), which the resume leg's failpoint counts.
+# ORIGIN_TRANSPORT_BYTES go through http_lite alone, with no origin, as
+# the PATCH bodies and the GET the origin legs send.
+ORIGIN_NS = "library/origin"
+ORIGIN_BLOB = GiB
+ORIGIN_RESUME_BYTES = 128 * MiB
+ORIGIN_REFRESH_BYTES = 128 * MiB
+ORIGIN_QUORUM_BYTES = 128 * MiB
+ORIGIN_PULL_BYTES = 64 * MiB
+ORIGIN_TRANSPORT_BYTES = 256 * MiB
+ORIGIN_CHUNK = 16 * MiB  # BlobClient's PATCH body
+ORIGIN_FLUSH = 8 * MiB
+ORIGIN_RANGE = (123_456_789, 223_456_788)
+ORIGIN_TIMEOUT_S = 300.0
+
+
+class OriginLaunches:
+    """Every wrapper's launch count, zeroed just before a leg and read
+    just after it."""
+
+    def __init__(self):
+        from kraken_tpu_torch.ops import cdc_cuda, sha256_cuda, transpose_cuda
+
+        self._mods = (sha256_cuda, cdc_cuda, transpose_cuda)
+
+    def reset(self) -> None:
+        for m in self._mods:
+            m.reset_launches()
+
+    def read(self) -> dict:
+        out = {}
+        for m in self._mods:
+            out.update(m.LAUNCHES)
+        return out
+
+
+async def http_transport(nbytes: int) -> dict:
+    """The port's HTTP/1.1 alone on loopback: ``nbytes`` PATCHed in
+    ``ORIGIN_CHUNK`` bodies to a handler that reads them by
+    ``iter_chunked(1 MiB)`` (the origin's PATCH read) and drops them, then
+    GET back from a handler that writes 1 MiB slices (the origin's serve),
+    through ``HTTPClient`` as the origin's clients do. What the origin legs'
+    stream and download rates stand on."""
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+
+    body = np.random.default_rng(SEED + 60).bytes(ORIGIN_CHUNK)
+    app = http_lite.Application(client_max_size=GiB)
+
+    async def sink(req):
+        n = 0
+        async for chunk in req.content.iter_chunked(MiB):
+            n += len(chunk)
+        return http_lite.Response(text=str(n))
+
+    async def source(req):
+        resp = http_lite.StreamResponse()
+        resp.content_length = nbytes
+        await resp.prepare(req)
+        for off in range(0, nbytes, MiB):
+            await resp.write(body[off % ORIGIN_CHUNK:off % ORIGIN_CHUNK + MiB])
+        await resp.write_eof()
+        return resp
+
+    app.router.add_patch("/sink", sink)
+    app.router.add_get("/source", source)
+    runner, port = await http_lite.serve(app, "127.0.0.1", 0)
+    client = HTTPClient(retries=0)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(nbytes // ORIGIN_CHUNK):
+            got = await client.patch(f"http://127.0.0.1:{port}/sink", data=body)
+            if int(got) != len(body):
+                raise AssertionError(f"origin transport: the sink read {got} bytes")
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = await client.get(f"http://127.0.0.1:{port}/source")
+        down_s = time.perf_counter() - t0
+    finally:
+        await client.close()
+        await runner.cleanup()
+    if len(got) != nbytes:
+        raise AssertionError(f"origin transport: {len(got)} bytes back of {nbytes}")
+    return {"patch_s": up_s, "patch_gbps": nbytes / up_s / 1e9,
+            "get_s": down_s, "get_gbps": nbytes / down_s / 1e9}
+
+
+def require_launches(leg: str, launches: dict, names) -> None:
+    """Fail if a kernel of the leg's path was launched no time in it."""
+    missing = [n for n in names if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"origin {leg}: {missing} launched no time: {launches}")
+
+
+async def origin_http(root: str, card_name_power: str) -> dict:
+    """Phase 13: uploads to port ``OriginServer``s over the port's HTTP/1.1,
+    every piece hashed on the card. Returns each leg's result."""
+    from kraken_tpu_torch import (
+        AgentTorrentArchive, BatchedVerifier, CAStore, DedupIndex, Digest, Generator,
+        IngestConfig, IngestPipeline, MetaInfo, OriginTorrentArchive, PieceLengthConfig,
+        get_hasher,
+    )
+    from kraken_tpu_torch.backend import Manager as BackendManager
+    from kraken_tpu_torch.backend.base import make_backend
+    from kraken_tpu_torch.core.peer import PeerID
+    from kraken_tpu_torch.origin.blobrefresh import Refresher
+    from kraken_tpu_torch.origin.client import BlobClient, ClusterClient
+    from kraken_tpu_torch.origin.server import OriginServer, QuorumConfig
+    from kraken_tpu_torch.origin.writeback import WritebackExecutor
+    from kraken_tpu_torch.p2p.scheduler import Scheduler, SchedulerConfig
+    from kraken_tpu_torch.persistedretry import Manager as RetryManager, TaskStore
+    from kraken_tpu_torch.placement import HostList, Ring
+    from kraken_tpu_torch.tracker.client import make_tracker_client
+    from kraken_tpu_torch.tracker.server import TrackerServer
+    from kraken_tpu_torch.utils import failpoints, http_lite, trace
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+    from kraken_tpu_torch.utils.metrics import REGISTRY
+
+    hasher = get_hasher("cuda")
+    launches = OriginLaunches()
+    pieces = PieceLengthConfig(((0, PIECE),))
+    results: dict = {}
+    rng = np.random.default_rng(SEED + 50)
+
+    def host_hashing() -> dict:
+        """What must not move: hashlib piece hashing, host verify batches."""
+        return {"hashlib_pieces": REGISTRY.counter("hasher_pieces_total").value(hasher="cpu"),
+                "verify_batches_host": REGISTRY.counter("verify_batches_total").value(path="host")}
+
+    host_before = host_hashing()
+
+    class TimedClient(BlobClient):
+        """The port's BlobClient with its stream, commit and resume marked."""
+
+        def __init__(self, addr: str):
+            super().__init__(addr, HTTPClient(retries=0))
+            self.marks: dict = {}
+            self.offsets: list = []
+
+        async def _start_upload(self, namespace, d):
+            self.marks.setdefault("start", time.perf_counter())
+            return await super()._start_upload(namespace, d)
+
+        async def _session_offset(self, *a, **kw):
+            t0 = time.perf_counter()
+            off = await super()._session_offset(*a, **kw)
+            self.offsets.append({"offset": off, "head_s": time.perf_counter() - t0})
+            return off
+
+        async def _commit_resumable(self, *a, **kw):
+            self.marks["stream_end"] = time.perf_counter()
+            await super()._commit_resumable(*a, **kw)
+            self.marks["acked"] = time.perf_counter()
+
+        async def timed_upload(self, d, data) -> dict:
+            self.marks.clear()
+            await asyncio.wait_for(self.upload(ORIGIN_NS, d, data, chunk_size=ORIGIN_CHUNK),
+                                   ORIGIN_TIMEOUT_S)
+            m = self.marks
+            return {"stream_s": m["stream_end"] - m["start"],
+                    "commit_s": m["acked"] - m["stream_end"],
+                    "upload_to_201_s": m["acked"] - m["start"],
+                    "stream_gbps": len(data) / (m["stream_end"] - m["start"]) / 1e9,
+                    "gbps": len(data) / (m["acked"] - m["start"]) / 1e9}
+
+    servers: list = []
+
+    async def start_origin(name: str, *, pipeline=None, dedup=False, backend_root=None,
+                           seed=False, ring=None, self_addr="", port=0, quorum=None):
+        store = CAStore(os.path.join(root, name))
+        gen = Generator(store, hasher=hasher, piece_lengths=pieces, pipeline=pipeline)
+        retry = RetryManager(TaskStore(os.path.join(root, f"{name}.retry.db")))
+        refresher = writeback = None
+        if backend_root is not None:
+            backends = BackendManager([{"namespace": ".*", "backend": "file",
+                                        "config": {"root": backend_root}}])
+            refresher = Refresher(store, backends, gen)
+            writeback = WritebackExecutor(store, backends, retry)
+        index = DedupIndex(store, hasher=hasher, device=hasher.device) if dedup else None
+        server = OriginServer(store, gen, refresher=refresher, writeback=writeback, retry=retry,
+                              ring=ring, self_addr=self_addr,
+                              scheduler=await peer(store, OriginTorrentArchive) if seed else None,
+                              dedup=index, ingest_pipeline=pipeline, quorum=quorum)
+        runner, bound = await http_lite.serve(server.make_app(), "127.0.0.1", port)
+        o = {"server": server, "runner": runner, "addr": f"127.0.0.1:{bound}", "store": store,
+             "retry": retry, "name": name}
+        servers.append(o)
+        return o
+
+    def exact(o, d, data, want: bytes, what: str) -> None:
+        if o["store"].read_cache_file(d) != data:
+            raise AssertionError(f"origin {what}: the blob on {o['name']} is not byte-identical")
+        mi = o["server"].generator.get_cached(d)
+        if mi is None or mi.piece_hashes != want:
+            raise AssertionError(f"origin {what}: {o['name']}'s metainfo != hashlib")
+
+    def last_span(name: str, d) -> dict:
+        """The last span of ``name`` that the origins recorded for blob ``d``."""
+        for sp in reversed(trace.TRACER.recorder.snapshot()):
+            if sp["name"] == name and sp.get("attrs", {}).get("digest") == d.hex[:12]:
+                return sp
+        raise AssertionError(f"origin: no {name} span for {d.hex[:12]}")
+
+    def commit_split(d) -> dict:
+        """The commit handler's wall and its parts, from its span."""
+        sp = last_span("origin.ingest.commit", d)
+        return {"handler_s": sp["duration_s"],
+                **{k: v for k, v in sp["attrs"].items() if k != "digest"}}
+
+    # The tracker of leg (g), up first: origin A's scheduler announces to it.
+    tracker = TrackerServer(announce_interval_seconds=SWARM_TRACKER_INTERVAL)
+    tracker._metainfo_cache = CountingCache(tracker._metainfo_cache)
+    t_runner, t_port = await http_lite.serve(tracker.make_app(), "127.0.0.1", 0)
+    t_addr = f"127.0.0.1:{t_port}"
+    peers: list = []
+
+    async def peer(store, archive_cls):
+        """A started port Scheduler announcing to leg (g)'s tracker."""
+        pid = PeerID(os.urandom(20).hex())
+        client = make_tracker_client(t_addr, pid, "127.0.0.1", 0)
+        verifier = BatchedVerifier(hasher=hasher, max_delay_seconds=0.002)
+        s = Scheduler(pid, "127.0.0.1", 0, archive_cls(store, verifier), client, client,
+                      config=SchedulerConfig())
+        peers.append((s, client))
+        await s.start()
+        client.port = s.port
+        return s
+
+    cluster = None
+    trace_config = trace.TRACER.config
+    trace.TRACER.apply(trace.TraceConfig(sample_rate=1.0))  # every span kept
+    try:
+        r = await asyncio.wait_for(http_transport(ORIGIN_TRANSPORT_BYTES), ORIGIN_TIMEOUT_S)
+        results["transport"] = r
+        emit({"phase": "origin_http", "leg": "transport", "what": "http_lite alone, no origin",
+              "bytes": ORIGIN_TRANSPORT_BYTES, "patch_body": ORIGIN_CHUNK,
+              "card": card_name_power, **r})
+
+        # (a) and (b) are wired alike (a DedupIndex, a file backend taking
+        # writeback, a seeding scheduler) but for the pipeline, so their acks
+        # differ only by where the pieces are hashed. Each commit's split is
+        # read from the origin's own spans.
+        data = rng.bytes(ORIGIN_BLOB)
+        d = Digest.from_bytes(data)
+        want = hashlib_pieces(data, PIECE)
+        want_mi = MetaInfo(d, len(data), PIECE, want).serialize()
+        a_vs_b = {}
+        for leg, pipe in (("a", None), ("b", IngestPipeline(hasher, IngestConfig()))):
+            o = await start_origin(leg, pipeline=pipe, dedup=True, seed=True,
+                                   backend_root=os.path.join(root, f"backend_{leg}"))
+            stream_plen = o["server"]._stream_piece_length
+            if (stream_plen, o["server"]._stream_hash_pool) != (PIECE if pipe else 0, None):
+                raise AssertionError(f"origin {leg}: stream-time piece length {stream_plen}")
+            c = TimedClient(o["addr"])
+            launches.reset()
+            r = await c.timed_upload(d, data)
+            r["launches_at_201"] = launches.read()
+            t0 = time.perf_counter()
+            await asyncio.gather(*o["server"]._dedup_tasks)
+            r["dedup_wait_after_201_s"] = time.perf_counter() - t0
+            r["dedup_s"] = last_span("origin.dedup.add", d)["duration_s"]
+            r["launches"] = launches.read()
+            require_launches(leg, r["launches_at_201"], ["sha256_uniform"])
+            require_launches(f"{leg} dedup", r["launches"], ["sha256_ragged", "gear_candidates"])
+            r["commit_split"] = split = commit_split(d)
+            split["outside_handler_s"] = r["commit_s"] - split["handler_s"]
+            if split["digest_from"] != "stream":
+                raise AssertionError(f"origin {leg}: the commit re-read a streamed upload")
+            if pipe is None:
+                gen = last_span("origin.metainfo.generate", d)
+                split.update({"generate_s": gen["duration_s"], **{
+                    f"generate_{k}": gen["attrs"][k] for k in ("hash_s", "read_wait_s")}})
+            elif "ingest_hash" not in split:
+                raise AssertionError("origin b: the commit did not take the stream-time digests")
+            exact(o, d, data, want, leg)
+            got_mi = (await c.get_metainfo(ORIGIN_NS, d)).serialize()
+            if got_mi != want_mi:
+                raise AssertionError(f"origin {leg}: GET /metainfo != MetaInfo over hashlib's")
+            if o["server"].dedup.stats()["blobs"] != 1:
+                raise AssertionError(f"origin {leg}: the dedup index did not index the blob")
+            r.update({"metainfo_bytes": len(got_mi), "pieces": len(want) // 32, "checks": [
+                "piece hashes == hashlib", "GET /metainfo == MetaInfo(hashlib)",
+                "blob byte-identical", "dedup indexed", "commit took the stream digest"]})
+            results[leg] = r
+            a_vs_b[leg] = (o, c)
+            what = ("commit-time pass, no pipeline" if pipe is None else
+                    "stream-time pass, IngestConfig(): host, 64 MiB windows, 2 in flight")
+            emit({"phase": "origin_http", "leg": leg, "what": what, "blob_bytes": len(data),
+                  "piece_length": PIECE, "card": card_name_power, **r})
+        a, client = a_vs_b["a"]
+        await a_vs_b["b"][1].close()
+        ra, rb = results["a"], results["b"]
+        emit({"phase": "origin_http", "leg": "a_vs_b",
+              "acks_sooner": "a (commit-time)" if ra["upload_to_201_s"] < rb["upload_to_201_s"]
+              else "b (stream-time)",
+              **{k: {"a": ra[k], "b": rb[k]} for k in ("upload_to_201_s", "stream_s",
+                                                       "commit_s")},
+              "card": card_name_power})
+
+        # (c) Resume: a PATCH fails half way; the client HEADs and resumes.
+        # The failed PATCH invalidates the session's tracker; the HEAD drops
+        # it and re-adopts the session from its journal by re-reading the
+        # spool, and the commit takes the digest of that re-read.
+        data_c = rng.bytes(ORIGIN_RESUME_BYTES)
+        dc = Digest.from_bytes(data_c)
+        want_c = hashlib_pieces(data_c, PIECE)
+        adopted = REGISTRY.counter("upload_sessions_adopted_total")
+        adopted0 = adopted.value()
+        flushes = ORIGIN_RESUME_BYTES // ORIGIN_FLUSH
+        failpoints.FAILPOINTS.arm("origin.patch.write", f"every:{flushes // 2}+times:1")
+        launches.reset()
+        try:
+            r = await client.timed_upload(dc, data_c)
+            fired = failpoints.FAILPOINTS.snapshot()["failpoints"]["origin.patch.write"]["fired"]
+        finally:
+            failpoints.FAILPOINTS.disarm_all()
+        r["launches_at_201"] = launches.read()
+        await asyncio.gather(*a["server"]._dedup_tasks)
+        r["launches"] = launches.read()
+        require_launches("c", r["launches_at_201"], ["sha256_uniform"])
+        if fired != 1 or not client.offsets:
+            raise AssertionError(f"origin c: the failpoint fired {fired} times, "
+                                 f"{len(client.offsets)} resumes")
+        if adopted.value() != adopted0 + 1:
+            raise AssertionError("origin c: the session was not re-adopted from its journal")
+        resumed = client.offsets[-1]["offset"]
+        r["commit_split"] = split = commit_split(dc)
+        if (split["digest_from"], split["replayed_bytes"]) != ("stream", resumed) or not resumed:
+            raise AssertionError(f"origin c: the commit's digest came from {split['digest_from']} "
+                                 f"after re-reading {split['replayed_bytes']} B, resumed at "
+                                 f"{resumed} B")
+        exact(a, dc, data_c, want_c, "c")
+        r.update({"resumed_at": client.offsets, "sessions_adopted": adopted.value() - adopted0,
+                  "reread_bytes": split["replayed_bytes"], "failpoint_at_flush": flushes // 2,
+                  "checks": ["one fire, one re-adoption",
+                             "commit digest from the spool re-read up to the resumed offset",
+                             "blob byte-identical", "metainfo == hashlib"]})
+        results["c"] = r
+        emit({"phase": "origin_http", "leg": "c", "what": "resume after a failed PATCH",
+              "blob_bytes": len(data_c), "card": card_name_power, **r})
+
+        # (d) Download: the 1 GiB back, whole and by range.
+        t0 = time.perf_counter()
+        got = await asyncio.wait_for(client.download(ORIGIN_NS, d), ORIGIN_TIMEOUT_S)
+        down_s = time.perf_counter() - t0
+        if got != data:
+            raise AssertionError("origin d: the download is not byte-identical")
+        del got
+        url = f"http://{a['addr']}/namespace/{ORIGIN_NS.replace('/', '%2F')}/blobs/{d.hex}"
+        lo, hi = ORIGIN_RANGE
+        async with http_lite.ClientSession() as session:
+            async with session.get(url, headers={"Range": f"bytes={lo}-{hi}"}) as resp:
+                part, status, crange = await resp.read(), resp.status, resp.headers.get(
+                    "Content-Range")
+            async with session.get(url, headers={"Range": f"bytes={len(data)}-"}) as resp:
+                await resp.read()
+                past = resp.status
+        if (status, crange, part) != (206, f"bytes {lo}-{hi}/{len(data)}", data[lo:hi + 1]):
+            raise AssertionError(f"origin d: range answer {status} {crange}")
+        if past != 416:
+            raise AssertionError(f"origin d: a range past the end answered {past}")
+        r = {"download_s": down_s, "gbps": len(data) / down_s / 1e9, "range_status": status,
+             "range_bytes": len(part), "past_eof_status": past,
+             "checks": ["200 byte-identical", "206 == slice", "416 past EOF"]}
+        results["d"] = r
+        emit({"phase": "origin_http", "leg": "d", "what": "download", "blob_bytes": len(data),
+              "card": card_name_power, **r})
+
+        # (e) Refresh from a file backend, and writeback of (a)'s blob.
+        data_e = rng.bytes(ORIGIN_REFRESH_BYTES)
+        de = Digest.from_bytes(data_e)
+        want_e = hashlib_pieces(data_e, PIECE)
+        backend_e = os.path.join(root, "backend_e")
+        await make_backend("file", {"root": backend_e}).upload(ORIGIN_NS, de.hex, data_e)
+        e = await start_origin("e", backend_root=backend_e)
+        client_e = BlobClient(e["addr"])
+        launches.reset()
+        t0 = time.perf_counter()
+        got = await asyncio.wait_for(client_e.download(ORIGIN_NS, de), ORIGIN_TIMEOUT_S)
+        refresh_s = time.perf_counter() - t0
+        r = {"refresh_s": refresh_s, "launches": launches.read()}
+        require_launches("e", r["launches"], ["sha256_uniform"])
+        if got != data_e:
+            raise AssertionError("origin e: the refreshed blob is not byte-identical")
+        exact(e, de, data_e, want_e, "e")
+        await client_e.close()
+        del got
+        t0 = time.perf_counter()
+        written = await asyncio.wait_for(a["retry"].run_once(), ORIGIN_TIMEOUT_S)
+        r["writeback_s"] = time.perf_counter() - t0
+        back = await make_backend("file", {"root": os.path.join(root, "backend_a")}).download(
+            ORIGIN_NS, d.hex)
+        if back != data:
+            raise AssertionError("origin e: the written-back blob is not byte-identical")
+        del back
+        r.update({"writeback_tasks_done": written, "checks": [
+            "refreshed blob byte-identical", "metainfo == hashlib", "writeback byte-identical"]})
+        results["e"] = r
+        emit({"phase": "origin_http", "leg": "e", "what": "refresh and writeback",
+              "blob_bytes": len(data_e), "writeback_bytes": len(data),
+              "card": card_name_power, **r})
+
+        # (f) Quorum: three origins on one ring, write_quorum 2.
+        qports = free_ports(3)
+        addrs = [f"127.0.0.1:{p}" for p in qports]
+        ring = Ring(HostList(static=addrs), max_replica=3)
+        q = [await start_origin(f"q{i}", ring=ring, self_addr=addrs[i], port=qports[i],
+                                quorum=QuorumConfig(write_quorum=2, push_timeout_seconds=60.0)
+                                if i == 0 else None) for i in range(3)]
+        data_f = rng.bytes(ORIGIN_QUORUM_BYTES)
+        df = Digest.from_bytes(data_f)
+        want_f = hashlib_pieces(data_f, PIECE)
+        quorum_ok = REGISTRY.counter("origin_quorum_writes_total")
+        quorum0 = quorum_ok.value(outcome="quorum")
+        client_f = TimedClient(q[0]["addr"])
+        launches.reset()
+        r = await client_f.timed_upload(df, data_f)
+        holders = [o["name"] for o in q[1:] if o["store"].in_cache(df)]
+        if not holders or quorum_ok.value(outcome="quorum") != quorum0 + 1:
+            raise AssertionError(f"origin f: acked with replicas {holders}")
+        owner_mi = q[0]["server"].generator.get_cached(df).serialize()
+        for o in q[1:]:
+            if o["name"] in holders:
+                if o["server"].generator.get_cached(df).serialize() != owner_mi:
+                    raise AssertionError(f"origin f: {o['name']}'s metainfo != the owner's")
+        t0 = time.perf_counter()
+        drained = await asyncio.wait_for(q[0]["retry"].run_once(), ORIGIN_TIMEOUT_S)
+        r["drain_s"] = time.perf_counter() - t0
+        r["launches"] = launches.read()
+        require_launches("f", r["launches"], ["sha256_uniform"])
+        for o in q:
+            exact(o, df, data_f, want_f, "f")
+            if o["server"].generator.get_cached(df).serialize() != owner_mi:
+                raise AssertionError(f"origin f: {o['name']}'s metainfo != the owner's")
+        r.update({"ack_s": r["upload_to_201_s"], "holders_at_201": holders,
+                  "replication_tasks_done": drained, "checks": [
+                      "201 after a replica held the blob", "replica metainfo == owner's",
+                      "all three byte-identical"]})
+        await client_f.close()
+        results["f"] = r
+        emit({"phase": "origin_http", "leg": "f", "what": "write_quorum 2 of 3",
+              "blob_bytes": len(data_f), "card": card_name_power, **r})
+
+        # (g) Through the tracker: an agent pulls what origin A seeds.
+        cluster = ClusterClient(Ring(HostList(static=[a["addr"]]), max_replica=1))
+        tracker.origin_cluster = cluster
+        data_g = rng.bytes(ORIGIN_PULL_BYTES)
+        dg = Digest.from_bytes(data_g)
+        want_g = hashlib_pieces(data_g, PIECE)
+        await client.timed_upload(dg, data_g)
+        await asyncio.gather(*a["server"]._dedup_tasks)
+        exact(a, dg, data_g, want_g, "g")
+        agent_store = CAStore(os.path.join(root, "agent"))
+        agent = await peer(agent_store, AgentTorrentArchive)
+        counters = SwarmCounters(HashBatchTimer.of(hasher))
+        counters.start()
+        await asyncio.wait_for(agent.download(ORIGIN_NS, dg), ORIGIN_TIMEOUT_S)
+        r = await counters.stop()
+        if agent_store.read_cache_file(dg) != data_g:
+            raise AssertionError("origin g: the pulled blob is not byte-identical")
+        pieces_g = len(want_g) // 32
+        check_swarm_leg("origin g", r, 1, 1, pieces_g)
+        cache = tracker._metainfo_cache
+        if not cache.lookups:
+            raise AssertionError("origin g: the agent's metainfo did not come through the tracker")
+        r.update({"gbps": len(data_g) / r["wall_s"] / 1e9, "needed_pieces": pieces_g,
+                  "tracker_metainfo_lookups": cache.lookups,
+                  "tracker_metainfo_cache_hits": cache.hits,
+                  "checks": ["pulled blob byte-identical", "every piece verified on the card",
+                             "metainfo through the tracker's proxy"]})
+        results["g"] = r
+        emit({"phase": "origin_http", "leg": "g", "what": "upload -> origin -> metainfo -> "
+              "tracker -> pull -> verify", "blob_bytes": len(data_g), "card": card_name_power,
+              **r})
+        await client.close()
+    finally:
+        for s, c in peers:
+            await s.stop()
+            await c.close()
+        for o in servers:
+            await o["runner"].cleanup()
+            await o["server"].close_heal_cluster()
+            o["retry"].close()
+        await t_runner.cleanup()
+        await tracker.close()
+        if cluster is not None:
+            await cluster.close()
+        trace.TRACER.apply(trace_config)
+
+    host_after = host_hashing()
+    if host_after != host_before:
+        raise AssertionError(f"origin: host hashing moved: {host_before} -> {host_after}")
+    return results
 
 
 def main() -> int:
@@ -1988,6 +2532,21 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     tracker_secs = time.perf_counter() - tracker_start
 
+    # -- 13. origin_http: uploads to the port's origin over HTTP ----------
+    gc.collect()
+    work.mkdir(exist_ok=True)
+    origin_start = time.perf_counter()
+    try:
+        origin_legs = asyncio.run(origin_http(tempfile.mkdtemp(dir=work), card.name_power))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    origin_secs = time.perf_counter() - origin_start
+
+    def origin_launches(name: str) -> dict:
+        """Phase 13's launches of one wrapper, by leg."""
+        return {leg: r["launches"].get(name, 0) for leg, r in origin_legs.items()
+                if "launches" in r}
+
     print(card.name_power, flush=True)
     def sha_entry(leg, kernel):
         """A SHA-256 entry's bounds, and its per-block loop as built."""
@@ -2009,6 +2568,7 @@ def main() -> int:
          "swarm_launches": {leg: r["launches"]["sha256_uniform"] for leg, r in swarm.items()},
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_uniform"],
          "tracker_launches": fleet["launches"]["sha256_uniform"],
+         "origin_http_launches": origin_launches("sha256_uniform"),
          **sha_entry(uni_main, ROWS_KERNEL)},
         {"name": "sha256_ragged", **common,
          "replaces": "kraken_tpu/ops/sha256.py:140",
@@ -2017,6 +2577,7 @@ def main() -> int:
          "swarm_launches": {leg: r["launches"]["sha256_ragged"] for leg, r in swarm.items()},
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_ragged"],
          "tracker_launches": fleet["launches"]["sha256_ragged"],
+         "origin_http_launches": origin_launches("sha256_ragged"),
          **sha_entry(rag_main, ROWS_KERNEL)},
         {"name": "pack_tiles_device", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -2024,6 +2585,7 @@ def main() -> int:
          "launches": ingest_launches["pack_tiles_device"], "max_abs_err": 0,
          "ms": pack_ms, "plain_ms": pack_plain_ms, "bound_ms": pack_bound_ms,
          "bound_by": pack_bound_by, "library_ms": pack_library_ms,
+         "origin_http_launches": origin_launches("pack_tiles_device"),
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 4 MiB"},
         {"name": "sha256_packed_tiles", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -2032,6 +2594,7 @@ def main() -> int:
          "ms": packed_ms, "plain_ms": packed_plain_ms, "library_ms": None,
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 16 KiB",
          "ms_at_plain_shape": packed16_ms,
+         "origin_http_launches": origin_launches("sha256_packed_tiles"),
          **sha_entry(packed_main, PACKED_KERNEL)},
         {"name": "gear_candidates", "kernel": GEAR_KERNEL, "route": "cuda",
          "source": "kraken_tpu_torch/csrc/gear.cu",
@@ -2041,19 +2604,21 @@ def main() -> int:
          "bound_by": gear_leg["bound_by"], "ops_bound_ms": gear_leg["ops_bound_ms"],
          "bytes_bound_ms": gear_leg["bytes_bound_ms"], "library_ms": gear_library_ms,
          "sass_per_byte": gear_sass,
+         "origin_http_launches": origin_launches("gear_candidates"),
          "shape": "one 64 MiB window", "plain_shape": "one 64 MiB window"},
         # A diagnostic on no path of the system: the main path launches it
         # no time; each decomposition's own launches stand beside.
         {"name": "transpose_only", "route": "cuda", "source": "kraken_tpu_torch/csrc/transpose.cu",
          "replaces": "bench_transpose.py:80", "launches": main_launches["transpose_only"],
-         "relayout_launches": relayout_launches, "max_abs_err": t_err,
+         "relayout_launches": relayout_launches,
+         "origin_http_launches": origin_launches("transpose_only"), "max_abs_err": t_err,
          "ms": full["transpose_only_ms"], "plain_ms": full["transpose_only_plain_ms"],
          "bound_ms": t_bound["bound_ms"], "bound_by": t_bound["bound_by"], "library_ms": None,
          "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
          "ms_at_bench_shape": decomps["bench_shape"]["transpose_only_ms"]},
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
         "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
-        "tracker_seconds": tracker_secs,
+        "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

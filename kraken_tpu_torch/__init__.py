@@ -25,8 +25,12 @@ through the port's own MessagePack codec (``utils.msgpack_lite``) -- and
 the tracker fleet (``tracker.server``, ``tracker.client``, ``placement``):
 trackers and their clients over the port's own HTTP/1.1
 (``utils.http_lite``), sharded by rendezvous hashing, failing over through
-breakers and deadline budgets. Entry points run on the card unless the caller asks for the CPU (a CPU hasher,
-``device="cpu"``).
+breakers and deadline budgets -- and the origin over that HTTP
+(``origin.server.OriginServer``, ``origin.client``, ``backend``,
+``persistedretry``, ``store.serve``): resumable uploads whose metainfo the
+card makes, ranged downloads, a quorum write plane, heal, refresh and
+writeback. Entry points run on the card unless the caller asks for the CPU
+(a CPU hasher, ``device="cpu"``).
 """
 
 from kraken_tpu_torch.core import (

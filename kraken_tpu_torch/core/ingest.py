@@ -82,7 +82,7 @@ _STAGE_BUCKETS = (
 
 
 def record_stage(stage: str, seconds: float) -> None:
-    """One window's wall for one pipeline stage."""
+    """One window's (or an upload commit's) wall for one pipeline stage."""
     REGISTRY.histogram(
         "ingest_stage_seconds",
         "Per-window wall of each ingest pipeline stage",
@@ -92,9 +92,11 @@ def record_stage(stage: str, seconds: float) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class IngestConfig:
-    """The ingest knobs (the origin's ``ingest:`` section). The JAX
-    package's ``resume`` and ``serve_while_ingest`` belong to the origin
-    server's upload sessions and wait for the port's server slice."""
+    """The ingest knobs (the origin's ``ingest:`` section). ``resume`` and
+    ``serve_while_ingest`` are read by the ``OriginServer`` whose
+    ``ingest_pipeline`` this is, unless its caller pins them
+    (``OriginServer(ingest_resume=, serve_while_ingest=)``); the pipeline
+    itself ignores them."""
 
     # Bytes per pipeline window (floored to whole pieces at run time; a
     # window always holds >= 1 piece; with a packed mode, floored to whole
@@ -117,6 +119,16 @@ class IngestConfig:
     # the cuda hasher; other windows take host-mode handling,
     # bit-identically.
     pack_mode: str = "host"
+    # Resumable upload sessions: journal per-upload durable progress to an
+    # ``upload/<uid>.session`` sidecar so a crashed origin, or one whose
+    # PATCH failed mid-stream, re-adopts the session and the client
+    # resumes from the journaled offset instead of from zero. On (one
+    # small sidecar write per flush batch).
+    resume: bool = True
+    # Publish metainfo and seed the blob from its upload spool as soon as
+    # every piece is hashed -- before the commit rename -- so agents fan
+    # out behind the upload front. Off.
+    serve_while_ingest: bool = False
 
     def __post_init__(self):
         if self.window_bytes < 1 << 20:

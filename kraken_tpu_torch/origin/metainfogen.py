@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -19,6 +20,7 @@ from kraken_tpu_torch.core.digest import Digest
 from kraken_tpu_torch.core.hasher import PieceHasher, get_hasher
 from kraken_tpu_torch.core.metainfo import MetaInfo
 from kraken_tpu_torch.store import CAStore, Metadata, register_metadata
+from kraken_tpu_torch.utils import trace
 
 
 @register_metadata
@@ -117,17 +119,27 @@ class Generator:
         )
         parts = []
         # One-window lookahead: the read of window i+1 runs in a side
-        # thread while the hasher chews window i.
-        with self.store.open_cache_file(d) as f, ThreadPoolExecutor(1) as ex:
+        # thread while the hasher chews window i. The span splits the wall
+        # into the hasher's calls and the waits for a read.
+        hash_s = 0.0
+        with trace.span("origin.metainfo.generate", digest=d.hex[:12]) as sp, \
+                self.store.open_cache_file(d) as f, ThreadPoolExecutor(1) as ex:
+            t0 = time.perf_counter()
             data = f.read(window)
             while True:
                 prefetch = ex.submit(f.read, window)
+                t1 = time.perf_counter()
                 parts.append(self.hasher.hash_pieces(data, piece_length))
+                hash_s += time.perf_counter() - t1
                 if len(data) < window:
                     break
                 data = prefetch.result()
                 if not data:
                     break
+            if sp is not None:
+                wall = time.perf_counter() - t0
+                sp.set(size=size, windows=len(parts), hash_s=round(hash_s, 6),
+                       read_wait_s=round(wall - hash_s, 6))
         hashes = parts[0] if len(parts) == 1 else np.concatenate(parts)
         metainfo = MetaInfo(d, size, piece_length, hashes.tobytes())
         self.store.set_metadata(d, TorrentMetaMetadata(metainfo))

@@ -1,10 +1,12 @@
 """Typed per-file metadata persisted beside cache files.
 
 The agent's crash-resume depends on it: a restarted download reads the
-piece bitfield and only fetches missing pieces. Each type serializes to
-bytes and lives at ``<data_path>._md_<name>`` -- the same file names and
-bytes as ``kraken_tpu.store.metadata``, so either package reads the
-other's sidecars.
+piece bitfield and only fetches missing pieces; the origin remembers a
+blob's namespace and its eviction pins. Each type serializes to bytes and
+lives at ``<data_path>._md_<name>`` -- the same file names and bytes as
+``kraken_tpu.store.metadata``, so either package reads the other's
+sidecars. ``TTIMetadata`` and ``ChunkManifestMetadata`` are not ported yet
+(ROADMAP A7e, A7f).
 """
 
 from __future__ import annotations
@@ -85,3 +87,77 @@ class PieceStatusMetadata(Metadata):
     def deserialize(cls, raw: bytes) -> "PieceStatusMetadata":
         n = int.from_bytes(raw[:4], "big")
         return cls(n, bytearray(raw[4:]))
+
+
+@register_metadata
+class NamespaceMetadata(Metadata):
+    """The namespace a blob was committed under -- needed by the repair
+    path, which re-replicates blobs long after the upload request (and its
+    namespace) is gone."""
+
+    name = "namespace"
+
+    def __init__(self, namespace: str):
+        self.namespace = namespace
+
+    def serialize(self) -> bytes:
+        return self.namespace.encode()
+
+    @classmethod
+    def deserialize(cls, raw: bytes) -> "NamespaceMetadata":
+        return cls(raw.decode())
+
+
+@register_metadata
+class PersistMetadata(Metadata):
+    """Marks a cache file as exempt from eviction while any pin reason is
+    outstanding (pending writeback, pending replication, ...).
+
+    Multiple subsystems pin independently; a boolean would let one
+    subsystem's unpin release another's pin (writeback landing must not
+    unpin a blob whose replication is still retrying). Pin bookkeeping is
+    not concurrency-safe across threads -- callers run on the event loop.
+    """
+
+    name = "persist"
+
+    def __init__(self, persist: bool | set[str] = True):
+        if isinstance(persist, bool):
+            self.reasons: set[str] = {"writeback"} if persist else set()
+        else:
+            self.reasons = set(persist)
+
+    @property
+    def persist(self) -> bool:
+        return bool(self.reasons)
+
+    def serialize(self) -> bytes:
+        return ",".join(sorted(self.reasons)).encode()
+
+    @classmethod
+    def deserialize(cls, raw: bytes) -> "PersistMetadata":
+        text = raw.decode()
+        if text == "1":
+            # Legacy boolean record: writeback was the only writer of
+            # PersistMetadata(True), so map it to the reason writeback
+            # releases -- an unreleasable reason would pin forever.
+            return cls({"writeback"})
+        if text in ("", "0"):
+            return cls(False)
+        return cls(set(text.split(",")))
+
+
+def pin(store, d, reason: str) -> None:
+    """Add an eviction-exemption reason to a blob."""
+    md = store.get_metadata(d, PersistMetadata) or PersistMetadata(set())
+    md.reasons.add(reason)
+    store.set_metadata(d, md)
+
+
+def unpin(store, d, reason: str) -> None:
+    """Drop one reason; the blob stays pinned while others remain."""
+    md = store.get_metadata(d, PersistMetadata)
+    if md is None:
+        return
+    md.reasons.discard(reason)
+    store.set_metadata(d, md)

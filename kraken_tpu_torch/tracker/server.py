@@ -77,9 +77,8 @@ class TrackerServer(LameduckMixin):
     def __init__(
         self,
         peer_store: PeerStore | None = None,
-        # Any object with get_metainfo / get_recipe / similar: the
-        # reference passes origin.client.ClusterClient (the port's own is
-        # a later slice).
+        # Any object with get_metainfo / get_recipe / similar:
+        # origin.client.ClusterClient.
         origin_cluster=None,
         announce_interval_seconds: float = 3.0,
         handout_policy=default_priority,

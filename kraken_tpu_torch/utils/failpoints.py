@@ -44,6 +44,10 @@ from typing import Optional
 # chaos run fails loudly instead of injecting nothing and reporting green.
 # ``name@suffix`` variants validate by their base name.
 KNOWN_FAILPOINTS = frozenset({
+    "backend.file.download",
+    "backend.file.upload",
+    "castore.commit",
+    "castore.write",
     "httputil.request.conn_reset",
     "httputil.request.error",
     "httputil.request.slow",
@@ -53,12 +57,19 @@ KNOWN_FAILPOINTS = frozenset({
     "ingest.window.pack",
     "ingest.window.read",
     "ingest.window.transfer",
+    "origin.commit.slow",
+    "origin.hint.replay.crash",
     "origin.ingest.device_fail",
+    "origin.patch.close",
+    "origin.patch.write",
+    "origin.quorum.replica.partition",
+    "origin.upload.resume",
     "p2p.conn.disconnect",
     "p2p.conn.recv.corrupt",
     "p2p.conn.send.delay",
     "p2p.pex.drop",
     "p2p.pex.flood",
+    "rpc.brownout.slow",
     "rpc.hedge.lose",
     "rpc.link.delay",
     "rpc.link.drop",

@@ -8,12 +8,16 @@ exists, so a ported module reads as its reference does:
 Server (``aiohttp.web``):
 
 - :class:`Application` with ``router.add_get/post/put/patch/delete/head``
-  (``add_get`` also answers HEAD), ``{name}`` path segments, app keys
-  (:class:`AppKey`, ``app[key] = value``) and ``client_max_size``;
+  (``add_get`` also answers HEAD), ``{name}`` path segments, a last
+  ``{name:.*}`` segment that takes the rest of the path, app keys
+  (:class:`AppKey`, ``app[key] = value``), ``client_max_size`` and
+  ``cleanup_ctx`` (async generators run up to their ``yield`` by
+  :func:`serve` and finished, last first, by ``AppRunner.cleanup()``);
 - :class:`Request`: ``method``, ``path``, ``raw_path``, ``match_info``,
   ``query``, ``headers``, ``remote``, ``transport``, ``app``, ``read()``, ``text()``,
-  ``json()`` and the streaming ``content`` (``read``, ``readany``,
-  ``iter_chunked``);
+  ``json()``, ``http_range`` (``aiohttp``'s single-range parser: a ``slice``,
+  ``ValueError`` for a malformed or multi-range header) and the streaming
+  ``content`` (``read``, ``readany``, ``iter_chunked``);
 - :class:`Response`, :class:`StreamResponse` (``prepare``, ``write``,
   ``write_eof``, ``content_length``) and :func:`json_response`, with the
   content types ``aiohttp`` sends;
@@ -21,7 +25,8 @@ Server (``aiohttp.web``):
   ``headers=``; raising one from a handler answers with it;
 - :func:`serve` (``AppRunner`` + ``TCPSite`` with
   ``handler_cancellation=True``), whose runner's ``cleanup()`` closes the
-  listener and every open connection.
+  listener and every open connection, then raises what a ``cleanup_ctx``
+  raised (more than one error as :class:`CleanupError`).
 
 Client (``aiohttp.ClientSession``): a pooled keep-alive
 :class:`ClientSession` whose ``request(method, url, data=, headers=,
@@ -47,7 +52,8 @@ Left out, with what stands in their place (ROADMAP §C):
 - no middlewares, ``FileResponse``, websockets, cookies, multipart,
   compression, proxies or ``Expect: 100-continue``;
 - ``Request.query`` is a plain ``dict`` of each name's first value (no
-  ``getall``), and a repeated header's values join with ``", "``.
+  ``getall``), and a repeated header's values join with ``", "``;
+- a route's only pattern is a last ``{name:.*}`` segment.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import asyncio
 import http
 import json as _json
 import logging
+import re
 import ssl as _ssl
 import time
 from collections.abc import MutableMapping
@@ -300,8 +307,18 @@ class _Route:
         self.method = method
         self.handler = handler
         self.parts = []  # (is_var, literal or name)
-        for seg in template.split("/")[1:]:
-            if seg.startswith("{") and seg.endswith("}") and len(seg) > 2:
+        self.tail = False  # the last part is {name:.*}: the rest of the path
+        segs = template.split("/")[1:]
+        for i, seg in enumerate(segs):
+            if seg.startswith("{") and seg.endswith(":.*}") and len(seg) > 5:
+                if i != len(segs) - 1:
+                    raise ValueError(f"route {template!r}: {{name:.*}} must be the last segment")
+                self.parts.append((True, seg[1:-4]))
+                self.tail = True
+            elif seg.startswith("{") and seg.endswith("}") and len(seg) > 2:
+                if ":" in seg:
+                    raise ValueError(f"route {template!r}: the only pattern is a last "
+                                     "{name:.*}")
                 self.parts.append((True, seg[1:-1]))
             elif "{" in seg or "}" in seg:
                 raise ValueError(f"route {template!r}: a variable must be a whole segment")
@@ -309,10 +326,20 @@ class _Route:
                 self.parts.append((False, seg))
 
     def match(self, raw_segments: list[str]) -> dict[str, str] | None:
+        if self.tail and len(raw_segments) >= len(self.parts):
+            n = len(self.parts) - 1
+            info = self._match(raw_segments[:n], self.parts[:n])
+            if info is not None:
+                info[self.parts[-1][1]] = unquote("/".join(raw_segments[n:]))
+            return info
         if len(raw_segments) != len(self.parts):
             return None
+        return self._match(raw_segments, self.parts)
+
+    @staticmethod
+    def _match(raw_segments: list[str], parts) -> dict[str, str] | None:
         info = {}
-        for (is_var, name), raw in zip(self.parts, raw_segments):
+        for (is_var, name), raw in zip(parts, raw_segments):
             value = unquote(raw)
             if is_var:
                 # aiohttp's segment pattern, [^{}/]+, over the decoded path.
@@ -368,11 +395,15 @@ class Router:
 
 class Application(MutableMapping):
     """Routes and app-wide state. ``client_max_size`` caps what
-    :meth:`Request.read` takes (413 at or above it), as in ``aiohttp``."""
+    :meth:`Request.read` takes (413 at or above it), as in ``aiohttp``.
+    ``cleanup_ctx`` holds ``async def ctx(app)`` generators that yield
+    once: :func:`serve` runs each to its ``yield`` before it listens, and
+    ``AppRunner.cleanup()`` finishes them, last first."""
 
     def __init__(self, *, client_max_size: int = 1024 ** 2):
         self.router = Router()
         self.client_max_size = client_max_size
+        self.cleanup_ctx: list[Callable[["Application"], AsyncIterator[None]]] = []
         self._state: dict = {}
 
     def __getitem__(self, key):
@@ -413,6 +444,32 @@ class Request:
     @property
     def transport(self) -> asyncio.Transport | None:
         return self._conn.transport
+
+    @property
+    def http_range(self) -> slice:
+        """The ``Range`` header as ``aiohttp`` reads it: ``slice(None, None,
+        1)`` with no header, ``bytes=a-b`` as ``slice(a, b + 1, 1)``,
+        ``bytes=a-`` as ``slice(a, None, 1)``, ``bytes=-n`` as ``slice(-n,
+        None, 1)``; ``ValueError`` for any other form (multi-range,
+        malformed, an end before its start)."""
+        rng = self.headers.get("Range")
+        start = end = None
+        if rng is not None:
+            found = re.findall(r"^bytes=(\d*)-(\d*)$", rng, re.ASCII)
+            if not found:
+                raise ValueError("range not in acceptable format")
+            start_s, end_s = found[0]
+            end = int(end_s) if end_s else None
+            start = int(start_s) if start_s else None
+            if start is None and end is not None:
+                start, end = -end, None
+            if start is not None and end is not None:
+                end += 1
+                if start >= end:
+                    raise ValueError("start cannot be after end")
+            if start is None and end is None:
+                raise ValueError("No start or end of range specified")
+        return slice(start, end, 1)
 
     async def read(self) -> bytes:
         if self._body is None:
@@ -794,21 +851,52 @@ class _ServerConn(asyncio.Protocol):
 
 
 class AppRunner:
-    """The listener and its connections; :meth:`cleanup` closes both."""
+    """The listener and its connections; :meth:`cleanup` finishes the
+    app's ``cleanup_ctx`` and closes both. A second ``cleanup()`` does
+    nothing."""
 
     def __init__(self, app: Application, keepalive_timeout: float = 75.0):
         self.app = app
         self.keepalive_timeout = keepalive_timeout
         self._server: asyncio.Server | None = None
         self._conns: set[_ServerConn] = set()
+        self._contexts: list[AsyncIterator[None]] = []  # started cleanup_ctx
 
     async def start(self, host: str, port: int, ssl_context=None) -> int:
         loop = asyncio.get_running_loop()
-        self._server = await loop.create_server(lambda: _ServerConn(self), host, port,
-                                                ssl=ssl_context)
+        try:
+            for ctx in self.app.cleanup_ctx:
+                gen = ctx(self.app)
+                await gen.__anext__()
+                self._contexts.append(gen)
+            self._server = await loop.create_server(lambda: _ServerConn(self), host,
+                                                    port, ssl=ssl_context)
+        except BaseException:
+            await self._finish_contexts()  # what they raise yields to this
+            raise
         return self._server.sockets[0].getsockname()[1]
 
+    async def _finish_contexts(self) -> list[Exception]:
+        """Finish every started context, last first; returns what they
+        raised, as ``aiohttp`` collects it."""
+        errors: list[Exception] = []
+        while self._contexts:
+            gen = self._contexts.pop()
+            try:
+                await gen.__anext__()
+            except StopAsyncIteration:
+                continue
+            except Exception as e:
+                errors.append(e)
+            else:
+                errors.append(RuntimeError(f"cleanup_ctx {gen!r} yielded more than once"))
+        return errors
+
     async def cleanup(self) -> None:
+        """Finish the contexts, then close the listener and connections;
+        only then raise what the contexts raised: one error as itself,
+        more as a :class:`CleanupError`."""
+        errors = await self._finish_contexts()
         if self._server is not None:
             self._server.close()
         tasks = []
@@ -823,6 +911,18 @@ class AppRunner:
         if self._server is not None:
             await self._server.wait_closed()
             self._server = None
+        if len(errors) == 1:
+            raise errors[0]
+        if errors:
+            raise CleanupError("Multiple errors on cleanup stage", errors)
+
+
+class CleanupError(RuntimeError):
+    """More than one ``cleanup_ctx`` failed to finish."""
+
+    @property
+    def exceptions(self) -> list[Exception]:
+        return self.args[1]
 
 
 async def serve(app: Application, host: str, port: int,

@@ -427,6 +427,11 @@ def test_deliberate_differences_from_aiohttp():
     # No middlewares.
     with pytest.raises(TypeError):
         http_lite.Application(middlewares=[])
+    # The only route pattern is a last {name:.*} segment.
+    with pytest.raises(ValueError):
+        http_lite.Application().router.add_get(r"/x/{n:\d+}", None)
+    with pytest.raises(ValueError):
+        http_lite.Application().router.add_get("/x/{n:.*}/y", None)
     # A repeated header's values join; the query keeps each name's first value.
     h = http_lite.Headers()
     h.add("X-A", "1")
@@ -468,6 +473,140 @@ def test_cleanup_closes_the_listener_and_every_open_connection():
         await session.close()
 
     asyncio.run(main())
+
+
+# -- Range, cleanup_ctx and the rest-of-path segment ---------------------------
+
+RANGES = [None, "bytes=0-0", "bytes=5-9", "bytes=5-", "bytes=-3", "bytes=0-", "bytes=-0",
+          "bytes=9-5", "bytes=5-5", "bytes=1-2,4-5", "bytes=-", "bytes=a-b", "items=0-1",
+          "bytes= 1-2", "bytes=1-2 ", "", "bytes=01-002", "bytes=\u0663-\u0664"]
+
+
+def _aiohttp_range(header):
+    from aiohttp.test_utils import make_mocked_request
+
+    return make_mocked_request("GET", "/", headers={} if header is None else
+                               {"Range": header}).http_range
+
+
+def _port_range(header):
+    headers = http_lite.Headers({} if header is None else {"Range": header})
+    body = http_lite.BodyReader(None, 0, False, ValueError)
+    return http_lite.Request(http_lite.Application(), "GET", "/", "HTTP/1.1", headers, body,
+                             None, None).http_range
+
+
+@pytest.mark.parametrize("header", RANGES)
+def test_http_range_is_aiohttps_parser(header):
+    def outcome(parse):
+        try:
+            return parse(header)
+        except ValueError:
+            return ValueError
+
+    assert outcome(_port_range) == outcome(_aiohttp_range)
+
+
+def test_cleanup_ctx_runs_at_serve_and_finishes_last_first_before_the_listener_closes():
+    events = []
+
+    async def main():
+        app = http_lite.Application()
+        port = {}
+
+        async def hello(req):
+            return http_lite.Response(text="hi")
+
+        def ctx(name):
+            async def gen(a):
+                assert a is app
+                events.append(f"start {name}")
+                yield
+                # The listener still answers while a context finishes.
+                async with http_lite.ClientSession() as s:
+                    async with s.get(f"http://127.0.0.1:{port['n']}/") as r:
+                        events.append(f"stop {name} {r.status}")
+            return gen
+
+        app.router.add_get("/", hello)
+        app.cleanup_ctx.extend([ctx("a"), ctx("b")])
+        runner, port["n"] = await http_lite.serve(app, "127.0.0.1", 0)
+        assert events == ["start a", "start b"]
+        await runner.cleanup()
+        await runner.cleanup()  # a second cleanup does nothing
+        with pytest.raises(http_lite.ClientConnectionError):
+            async with http_lite.ClientSession() as s:
+                await s.get(f"http://127.0.0.1:{port['n']}/")
+
+    asyncio.run(main())
+    assert events == ["start a", "start b", "stop b 200", "stop a 200"]
+
+
+@pytest.mark.parametrize("failing,raised", [
+    ({"b": "raise"}, ["ValueError b"]),
+    ({"c": "again"}, ["RuntimeError"]),
+    ({"a": "raise", "c": "again"}, ["RuntimeError", "ValueError a"]),
+], ids=["one-raises", "one-yields-again", "two-fail"])
+@pytest.mark.parametrize("kind", ["port", "aiohttp"])
+def test_cleanup_finishes_every_context_and_closes_before_it_raises(kind, failing, raised):
+    """A context that raises (or yields again) as it finishes stops no other:
+    every context finishes, last first, the listener closes, and then one
+    error is raised as itself, more as a ``CleanupError`` holding them."""
+    w = WEB[kind]
+    finished = []
+
+    def ctx(name):
+        async def gen(a):
+            yield
+            finished.append(name)
+            if failing.get(name) == "raise":
+                raise ValueError(name)
+            if failing.get(name) == "again":
+                yield
+        return gen
+
+    async def main():
+        app = w.Application()
+        app.cleanup_ctx.extend([ctx("a"), ctx("b"), ctx("c")])
+        port, stop = await start(kind, app)
+        with pytest.raises(Exception) as ei:
+            await stop()
+        with pytest.raises(ConnectionError):
+            await asyncio.open_connection("127.0.0.1", port)
+        return ei.value
+
+    err = asyncio.run(main())
+    assert finished == ["c", "b", "a"]
+    errors = err.exceptions if len(raised) > 1 else [err]
+    if len(raised) > 1:
+        assert type(err).__name__ == "CleanupError" and isinstance(err, RuntimeError)
+    assert [" ".join([type(e).__name__, *(str(e),) * isinstance(e, ValueError)])
+            for e in errors] == raised
+
+
+@pytest.mark.parametrize("kind", ["port", "aiohttp"])
+def test_a_last_dot_star_segment_takes_the_rest_of_the_path(kind):
+    w = WEB[kind]
+
+    async def name(req):
+        return w.json_response({"name": req.match_info["name"]})
+
+    async def main():
+        app = w.Application()
+        app.router.add_get("/files/{name:.*}", name)
+        port, stop = await start(kind, app)
+        out = {}
+        try:
+            async with aiohttp.ClientSession() as s:
+                for path in ("/files/a/b/c", "/files/", "/files/x%2Fy", "/files", "/other/a"):
+                    async with s.get(f"http://127.0.0.1:{port}{path}") as r:
+                        out[path] = (await r.json())["name"] if r.status == 200 else r.status
+        finally:
+            await stop()
+        return out
+
+    assert asyncio.run(main()) == {"/files/a/b/c": "a/b/c", "/files/": "", "/files/x%2Fy": "x/y",
+                                   "/files": 404, "/other/a": 404}
 
 
 # -- httputil: the JAX HTTPClient and the port's on one aiohttp server ----------

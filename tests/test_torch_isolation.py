@@ -49,7 +49,13 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
                    "utils/lameduck.py", "placement/hrw.py", "placement/hostlist.py",
                    "placement/hashring.py", "placement/healthcheck.py",
                    "placement/replicawalk.py", "tracker/peerhandout.py",
-                   "tracker/peerstore.py", "tracker/server.py", "tracker/client.py"):
+                   "tracker/peerstore.py", "tracker/server.py", "tracker/client.py",
+                   "backend/__init__.py", "backend/base.py", "backend/namepath.py",
+                   "backend/filebackend.py", "backend/testfs.py",
+                   "persistedretry/__init__.py", "persistedretry/manager.py",
+                   "store/castore.py", "store/metadata.py", "store/serve.py",
+                   "origin/client.py", "origin/blobrefresh.py", "origin/writeback.py",
+                   "origin/server.py", "core/ingest.py"):
         assert f"kraken_tpu_torch/{module}" in scanned, module
     bad = {
         str(f.relative_to(REPO)): m
@@ -187,10 +193,38 @@ with tempfile.TemporaryDirectory() as root:
 
     handout, same_metainfo = asyncio.run(fleet())
     assert same_metainfo
+
+    # The origin over the port's HTTP/1.1: an upload through the port's
+    # BlobClient, its metainfo read back through the ClusterClient.
+    from kraken_tpu_torch.origin.client import BlobClient, ClusterClient
+    from kraken_tpu_torch.origin.server import OriginServer
+    from kraken_tpu_torch.placement import HostList, Ring
+
+    async def origin():
+        server = OriginServer(o, kt.Generator(o, hasher=kt.CPUPieceHasher(),
+                                              piece_lengths=kt.PieceLengthConfig(((0, 2048),))))
+        runner, port = await http_lite.serve(server.make_app(), "127.0.0.1", 0)
+        addr = f"127.0.0.1:{port}"
+        blob3 = blob + b"origin"
+        d3 = kt.Digest.from_bytes(blob3)
+        client, cluster = BlobClient(addr), ClusterClient(Ring(HostList(static=[addr])))
+        try:
+            await client.upload("ns", d3, blob3, chunk_size=4096)
+            got = await cluster.get_metainfo("ns", d3)
+            back = await client.download("ns", d3)
+        finally:
+            await client.close()
+            await cluster.close()
+            await runner.cleanup()
+        return got.num_pieces, back == blob3
+
+    origin_pieces, origin_ok = asyncio.run(origin())
+    assert origin_ok
 mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "kraken_tpu", "msgpack", "yaml", "aiohttp")]
 print(json.dumps({"pieces": mi.num_pieces, "ingest_pieces": mi2.num_pieces,
-                  "chunks": int(record.fps.size), "handout": handout, "forbidden": mods}))
+                  "chunks": int(record.fps.size), "handout": handout,
+                  "origin_pieces": origin_pieces, "forbidden": mods}))
 """
 
 
@@ -206,7 +240,7 @@ def test_slice_runs_without_jax_or_kraken_tpu_loaded():
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["chunks"] > 1000
     assert out == {"pieces": 6, "ingest_pieces": 1025, "chunks": out["chunks"], "handout": 1,
-                   "forbidden": []}
+                   "origin_pieces": 6, "forbidden": []}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
@@ -258,3 +292,56 @@ def test_the_agent_archive_verifies_on_the_card_by_default(monkeypatch, tmp_path
     assert made and archive.verifier.hasher is made[0]
     assert archive.verifier.hasher.name == "cuda"
     assert archive.verifier._path_label == "cuda"
+
+
+def test_a_card_origin_does_not_piece_hash_with_hashlib_unless_asked(monkeypatch, tmp_path):
+    """``OriginServer`` on a ``cuda`` generator (the kernels' plain versions
+    here) hashes no piece with hashlib at stream time: its metainfo comes
+    from one batched pass of the ``cuda`` hasher at commit. Asked for
+    (``stream_piece_hash=True``), it does hash with hashlib."""
+    import asyncio
+
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.origin.server import OriginServer
+    from kraken_tpu_torch.utils import http_lite
+
+    blob = bytes(range(256)) * 40 + b"tail"
+    d = kt.Digest.from_bytes(blob)
+    card_calls = []
+    hashlib_pieces = []
+    hasher = kt.TorchPieceHasher(device="cpu")
+    orig_hash_pieces = hasher.hash_pieces
+    monkeypatch.setattr(hasher, "hash_pieces",
+                        lambda data, plen: card_calls.append(len(data)) or orig_hash_pieces(data, plen))
+    import kraken_tpu_torch.origin.server as server_mod
+
+    real = server_mod.record_hash_metrics
+    monkeypatch.setattr(server_mod, "record_hash_metrics",
+                        lambda name, *a: hashlib_pieces.append(name) or real(name, *a))
+
+    def upload(root, **kw):
+        store = kt.CAStore(str(tmp_path / root))
+        gen = kt.Generator(store, hasher=hasher, piece_lengths=kt.PieceLengthConfig(((0, 2048),)))
+        server = OriginServer(store, gen, **kw)
+
+        async def main():
+            runner, port = await http_lite.serve(server.make_app(), "127.0.0.1", 0)
+            client = BlobClient(f"127.0.0.1:{port}")
+            try:
+                await client.upload("ns", d, blob, chunk_size=3000)
+            finally:
+                await client.close()
+                await runner.cleanup()
+
+        asyncio.run(main())
+        return server, gen.get_cached(d)
+
+    server, mi = upload("card")
+    assert server._stream_piece_length == 0
+    assert card_calls == [len(blob)] and hashlib_pieces == []
+    assert mi.piece_hashes == kt.CPUPieceHasher().hash_pieces(blob, 2048).tobytes()
+    card_calls.clear()
+    server, mi2 = upload("asked", stream_piece_hash=True)
+    assert server._stream_piece_length == 2048
+    assert card_calls == [] and hashlib_pieces == ["cpu"]
+    assert mi2.serialize() == mi.serialize()
