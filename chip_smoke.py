@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs thirteen phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs fourteen phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -181,13 +181,43 @@ without a result:
    (``hasher_pieces_total{hasher="cpu"}``) and no host verify batch in the
    whole phase. Each leg prints its walls, GB/s, launches by wrapper and
    checks.
+14. ``herd`` -- the North star's main path as the system runs it: origin,
+   tracker and agent as three processes of ``python -m
+   kraken_tpu_torch.cli``, each from a config that extends the shipped
+   ``config/<component>/base.yaml`` by its relative path and overrides only
+   its host, ports (0), store, ``backends: []`` and its peers (flags);
+   origin and agent with ``--hasher cuda``. The tracker is started, the
+   origin pointed at it, then the tracker respawned on its port with the
+   origin's address. The port's ``BlobClient`` uploads BASELINE.json config
+   1's 1 GiB (4 MiB pieces, seeded) to the origin, whose ingest pipeline
+   hashes the pieces at stream time; a GET of the blob on the agent pulls
+   it over the wire, every piece verified on the card, and streams it
+   back. Then SIGHUP with a changed ``scheduler.wire_send_batch``, which
+   the agent must apply, and SIGTERM to each child, which must drain and
+   exit 0 within the shipped ``rpc.drain_timeout_seconds``. Launch counters
+   of another process are not visible here, so the gates read the
+   children's ``GET /metrics`` (``kernel_launches_total``, the wrappers'
+   own counts, beside the hasher and verify counters): the blob
+   byte-identical; ``GET /metainfo`` through the tracker equal to the
+   port's ``MetaInfo`` over hashlib's piece hashes; the origin's 16 ingest
+   windows and ``hasher_pieces_total{hasher="cuda"}`` risen by the 256
+   pieces plus its dedup chunks, ``{hasher="cpu"}`` unmoved; the agent's
+   every verify batch on the card, at least 1 GiB hashed there; the gear
+   kernel launched at the
+   origin (its router's calibration, and each 64 MiB window when the card
+   won it; the measured rates are printed); this process launching
+   nothing.
+   A child that dies before READY has its stderr printed and fails the
+   phase. It prints each child's time to READY, the upload's stream,
+   commit and 201, the pull's wall and GB/s, the verify batches and rows
+   a batch, and the drain times.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
 swarm leg and the tracker phase's pulls, and each seeder's metainfo; each
-leg of phase 13) and
+leg of phase 13; phase 14's children, through their ``/metrics``) and
 read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -220,6 +250,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -227,8 +258,10 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from urllib.parse import quote
 
 import numpy as np
 import torch
@@ -1746,6 +1779,296 @@ async def origin_http(root: str, card_name_power: str) -> dict:
     return results
 
 
+# -- phase 14, the herd -----------------------------------------------------
+# Origin, tracker and agent as three processes of the port's CLI, each from
+# a config that extends the shipped config/<component>/base.yaml and
+# overrides only its address, ports, store, backends and peers. BASELINE.json
+# config 1's blob: 1 GiB of 4 MiB pieces, seeded.
+HERD_NS = "library/herd"
+HERD_BLOB = GiB
+HERD_HASHER = "cuda"
+HERD_READY_S = 120.0
+HERD_SIGHUP_S = 15.0
+HERD_TIMEOUT_S = 300.0
+HERD_WINDOW = 64 * MiB  # the shipped ingest.window_bytes and the gear pass's window
+
+
+class HerdChild:
+    """One ``python -m kraken_tpu_torch.cli`` child: its READY document,
+    its time to READY, its stderr in a file."""
+
+    def __init__(self, root: str, name: str, args: list[str]):
+        self.name = name
+        self.err_path = os.path.join(root, f"{name}.stderr")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kraken_tpu_torch.cli", *args],
+            stdout=subprocess.PIPE, stderr=open(self.err_path, "w"), cwd=REPO, text=True,
+            env=dict(os.environ, PYTHONPATH=str(REPO)),
+        )
+        ready = threading.Event()
+        self.ready: dict = {}
+
+        def read() -> None:
+            for line in self.proc.stdout:
+                if line.startswith("READY "):
+                    self.ready.update(json.loads(line[6:]))
+                    ready.set()
+            ready.set()
+
+        threading.Thread(target=read, daemon=True).start()
+        ready.wait(HERD_READY_S)
+        if not self.ready:
+            self.stop(kill=True)
+            sys.stderr.write(f"--- herd {name} stderr ---\n{self.log()[-8000:]}\n")
+            raise AssertionError(f"herd: {name} died or hung before READY "
+                                 f"(rc {self.proc.returncode})")
+        self.ready_s = time.perf_counter() - t0
+        self.addr = self.ready["addr"]
+
+    def log(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()
+
+    def metrics(self) -> str:
+        with urllib.request.urlopen(f"http://{self.addr}/metrics", timeout=30) as r:
+            return r.read().decode()
+
+    def stop(self, kill: bool = False) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGKILL if kill else signal.SIGTERM)
+        return self.proc.wait(timeout=60)
+
+
+def metric(text: str, name: str, **labels) -> float:
+    """One sample of a Prometheus text exposition (0 when absent)."""
+    want = "{" + ",".join(f'{k}="{v}"' for k, v in sorted(labels.items())) + "}" if labels else ""
+    for line in text.splitlines():
+        if line.startswith(name + want + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def herd_config(root: str, component: str, extra: str = "") -> str:
+    """A config extending the shipped base by its relative path."""
+    base = os.path.relpath(REPO / "config" / component / "base.yaml", root)
+    path = os.path.join(root, f"{component}.yaml")
+    body = [f"extends: {base}", "host: 127.0.0.1", "port: 0"]
+    if component != "tracker":
+        body += ["p2p_port: 0", f"store: {os.path.join(root, component)}"]
+    if component == "origin":
+        body += ["backends: []"]
+    with open(path, "w") as f:
+        f.write("\n".join(body) + "\n" + extra)
+    return path
+
+
+def herd_phase(root: str, card_name_power: str) -> dict:
+    """Phase 14: the three-process herd. Returns the numbers and the
+    children's counters that the kernels line carries."""
+    from kraken_tpu_torch import Digest, MetaInfo
+    from kraken_tpu_torch.configutil import load_config
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.deadline import RPCConfig
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+
+    children: list[HerdChild] = []
+    hasher = ["--hasher", HERD_HASHER]
+    try:
+        t_cfg = herd_config(root, "tracker")
+        o_cfg = herd_config(root, "origin")
+        a_extra = "scheduler:\n  wire_send_batch: 16\n"
+        a_cfg = herd_config(root, "agent", a_extra)
+        # The tracker needs the origin's address for its metainfo proxy
+        # and the origin needs the tracker's: start a tracker, then the
+        # origin pointed at it, then the tracker again on its port with
+        # the origin (the reference herd's dance).
+        first = HerdChild(root, "tracker0", ["tracker", "--config", t_cfg])
+        children.append(first)
+        origin = HerdChild(root, "origin", ["origin", "--config", o_cfg, "--tracker",
+                                            first.addr, *hasher])
+        children.append(origin)
+        if first.stop() != 0:
+            raise AssertionError("herd: the first tracker did not exit 0")
+        children.remove(first)
+        tracker = HerdChild(root, "tracker", ["tracker", "--config", t_cfg, "--port",
+                                              first.addr.rsplit(":", 1)[1], "--origins",
+                                              origin.addr])
+        children.append(tracker)
+        agent = HerdChild(root, "agent", ["agent", "--config", a_cfg, "--tracker",
+                                          tracker.addr, *hasher])
+        children.append(agent)
+        ready = {c.name: c.ready_s for c in (first, origin, tracker, agent)}
+        emit({"phase": "herd", "ready_s": ready, "addrs": {c.name: c.addr for c in children},
+              "what": "time from spawn to READY: interpreter, torch import, CUDA context, "
+                      "kernel library load, fsck, listeners", "card": card_name_power})
+
+        rng = np.random.default_rng(SEED + 70)
+        blob = rng.bytes(HERD_BLOB)
+        d = Digest.from_bytes(blob)
+        want_pieces = hashlib_pieces(blob, PIECE)
+        o0, a0 = origin.metrics(), agent.metrics()
+
+        async def upload_and_pull() -> dict:
+            marks: dict = {}
+
+            class Timed(BlobClient):
+                async def _start_upload(self, namespace, dd):
+                    marks.setdefault("start", time.perf_counter())
+                    return await super()._start_upload(namespace, dd)
+
+                async def _commit_resumable(self, *a, **kw):
+                    marks["stream_end"] = time.perf_counter()
+                    await super()._commit_resumable(*a, **kw)
+                    marks["acked"] = time.perf_counter()
+
+            client = Timed(origin.addr, HTTPClient(retries=0))
+            http = HTTPClient(retries=0, timeout_seconds=HERD_TIMEOUT_S)
+            try:
+                await asyncio.wait_for(client.upload(HERD_NS, d, blob, chunk_size=ORIGIN_CHUNK),
+                                       HERD_TIMEOUT_S)
+                # The agent answers once its swarm pull has finished, then
+                # streams the blob: the response head marks the pull's
+                # end, the body the serve.
+                url = f"http://{agent.addr}/namespace/{quote(HERD_NS, safe='')}/blobs/{d.hex}"
+                timeout = http_lite.ClientTimeout(total=HERD_TIMEOUT_S)
+                async with http_lite.ClientSession(timeout=timeout) as session:
+                    t0 = time.perf_counter()
+                    async with session.get(url) as resp:
+                        head_s = time.perf_counter() - t0
+                        got = await resp.read()
+                    pull_s = time.perf_counter() - t0
+                if resp.status != 200:
+                    raise AssertionError(f"herd: GET on the agent answered {resp.status}")
+                mi_raw = await http.get(
+                    f"http://{tracker.addr}/namespace/{quote(HERD_NS, safe='')}/blobs/"
+                    f"{d.hex}/metainfo")
+            finally:
+                await client.close()
+                await http.close()
+            return {"got": got, "pull_s": pull_s, "head_s": head_s, "mi_raw": mi_raw,
+                    "marks": marks}
+
+        r = asyncio.run(upload_and_pull())
+        if r["got"] != blob:
+            raise AssertionError("herd: the blob through the agent is not byte-identical")
+        want_mi = MetaInfo(d, len(blob), PIECE, want_pieces)
+        if r["mi_raw"] != want_mi.serialize():
+            raise AssertionError("herd: GET /metainfo through the tracker != MetaInfo over "
+                                 "hashlib's piece hashes")
+        o1, a1 = origin.metrics(), agent.metrics()
+        m = r["marks"]
+
+        def delta(before, after, name, **labels):
+            return metric(after, name, **labels) - metric(before, name, **labels)
+
+        pieces = len(want_pieces) // 32
+        # The origin's dedup pass runs after the 201 (chunking on the gear
+        # kernel, fingerprints through the cuda hasher): wait for it, so
+        # that every counter below holds the whole path.
+        deadline = time.perf_counter() + HERD_TIMEOUT_S
+        while metric(o1, "origin_dedup_indexed_blobs") < 1:
+            if time.perf_counter() > deadline:
+                raise AssertionError("herd: the origin's dedup pass did not finish")
+            time.sleep(0.5)
+            o1 = origin.metrics()
+
+        def delta(before, after, name, **labels):
+            return metric(after, name, **labels) - metric(before, name, **labels)
+
+        kernels = ("sha256_uniform", "sha256_ragged", "gear_candidates")
+        got = {
+            "origin_cuda_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cuda"),
+            "origin_cpu_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cpu"),
+            "origin_ingest_windows": delta(o0, o1, "ingest_windows_total", hasher="cuda"),
+            "origin_dedup_chunks": delta(o0, o1, "origin_dedup_unique_chunks"),
+            "origin_dedup_duplicate_bytes": delta(o0, o1, "origin_dedup_duplicate_bytes"),
+            "agent_cuda_batches": delta(a0, a1, "verify_batches_total", path="cuda"),
+            "agent_host_batches": delta(a0, a1, "verify_batches_total", path="host"),
+            "agent_verified_pieces": delta(a0, a1, "verify_pieces_total"),
+            "agent_cuda_bytes": delta(a0, a1, "hasher_bytes_total", hasher="cuda"),
+            "agent_cpu_bytes": delta(a0, a1, "hasher_bytes_total", hasher="cpu"),
+            "origin_launches": {k: delta(o0, o1, "kernel_launches_total", kernel=k)
+                                for k in kernels},
+            "agent_launches": {k: delta(a0, a1, "kernel_launches_total", kernel=k)
+                               for k in kernels},
+        }
+        # The origin hashed on the card: the blob's 256 pieces through its
+        # ingest pipeline's windows at stream time, plus its dedup chunks'
+        # fingerprints (a random blob has no duplicate chunk), and nothing
+        # with hashlib.
+        if (got["origin_cpu_pieces"] or got["origin_dedup_duplicate_bytes"]
+                or got["origin_cuda_pieces"] != pieces + got["origin_dedup_chunks"]
+                or got["origin_ingest_windows"] != -(-HERD_BLOB // HERD_WINDOW)):
+            raise AssertionError(f"herd: origin piece hashing {got}")
+        if got["agent_cuda_batches"] < 1 or got["agent_host_batches"] or got["agent_cpu_bytes"]:
+            raise AssertionError(f"herd: agent verify {got}")
+        if got["agent_cuda_bytes"] < HERD_BLOB or got["agent_verified_pieces"] < pieces:
+            raise AssertionError(f"herd: the agent verified less than the blob on the card: {got}")
+        # The dedup pass's router times both chunk paths once on a sample
+        # (gear launches) and keeps the faster for the process; it routes
+        # the windows to the card only when the card won.
+        got["origin_chunk_route_bps"] = {
+            path: metric(o1, "dedup_chunk_route_bps", path=path) for path in ("host", "device")}
+        if (not got["origin_launches"]["sha256_uniform"] or not got["agent_launches"]["sha256_ragged"]
+                or not got["origin_launches"]["sha256_ragged"]
+                or not got["origin_launches"]["gear_candidates"]):
+            raise AssertionError(f"herd: a kernel of the path did not launch: {got}")
+        emit({"phase": "herd", "leg": "upload", "blob_bytes": HERD_BLOB,
+              "stream_s": m["stream_end"] - m["start"], "commit_s": m["acked"] - m["stream_end"],
+              "upload_to_201_s": m["acked"] - m["start"],
+              "stream_gbps": HERD_BLOB / (m["stream_end"] - m["start"]) / 1e9,
+              "origin_launches": got["origin_launches"],
+              "origin_ingest_windows": got["origin_ingest_windows"],
+              "origin_cuda_pieces": got["origin_cuda_pieces"],
+              "origin_dedup_chunks": got["origin_dedup_chunks"],
+              "origin_chunk_route_bps": got["origin_chunk_route_bps"], "card": card_name_power})
+        batches = got["agent_cuda_batches"]
+        emit({"phase": "herd", "leg": "pull", "blob_bytes": HERD_BLOB, "pieces": pieces,
+              "pull_s": r["pull_s"], "gbps": HERD_BLOB / r["pull_s"] / 1e9,
+              "swarm_pull_s": r["head_s"], "serve_s": r["pull_s"] - r["head_s"],
+              "verify_batches": batches, "rows_per_batch": got["agent_verified_pieces"] / batches,
+              "agent_launches": got["agent_launches"], "agent_cuda_bytes": got["agent_cuda_bytes"],
+              "checks": ["blob byte-identical through the agent's HTTP API",
+                         "GET /metainfo through the tracker == MetaInfo over hashlib",
+                         f"{pieces} pieces hashed on the card at the origin, none by hashlib",
+                         "every verify batch on the card at the agent"],
+              "card": card_name_power})
+
+        # SIGHUP: the agent re-reads its config and applies the scheduler.
+        herd_config(root, "agent", "scheduler:\n  wire_send_batch: 8\n")
+        t0 = time.perf_counter()
+        agent.proc.send_signal(signal.SIGHUP)
+        while '"wire_send_batch": 8' not in agent.log():
+            if time.perf_counter() - t0 > HERD_SIGHUP_S:
+                raise AssertionError("herd: SIGHUP did not apply scheduler.wire_send_batch: "
+                                     + agent.log()[-2000:])
+            time.sleep(0.1)
+        sighup_s = time.perf_counter() - t0
+
+        # SIGTERM: each child drains, then exits 0, within its shipped
+        # rpc.drain_timeout_seconds.
+        drains = {}
+        for c in (agent, origin, tracker):
+            cfg = load_config(str(REPO / "config" / c.name / "base.yaml"))
+            limit = RPCConfig.from_dict(cfg.get("rpc")).drain_timeout_seconds
+            t0 = time.perf_counter()
+            rc = c.stop()
+            drains[c.name] = time.perf_counter() - t0
+            if rc != 0 or drains[c.name] > limit or "drain quiesced" not in c.log():
+                raise AssertionError(f"herd: {c.name} exit {rc} after {drains[c.name]:.1f} s:\n"
+                                     + c.log()[-3000:])
+        children.clear()
+        emit({"phase": "herd", "leg": "signals", "sighup_applied_s": sighup_s,
+              "drain_to_exit_s": drains, "card": card_name_power})
+        return {"ready_s": ready, "pull_s": r["pull_s"], "counters": got,
+                "upload_to_201_s": m["acked"] - m["start"]}
+    finally:
+        for c in children:
+            c.stop(kill=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2542,6 +2865,22 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     origin_secs = time.perf_counter() - origin_start
 
+    # -- 14. herd: origin, tracker and agent as processes of the port's CLI -
+    gc.collect()
+    torch.cuda.empty_cache()
+    work.mkdir(exist_ok=True)
+    herd_start = time.perf_counter()
+    own = OriginLaunches()
+    own.reset()
+    try:
+        herd = herd_phase(tempfile.mkdtemp(dir=work), card.name_power)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    herd_secs = time.perf_counter() - herd_start
+    if any(own.read().values()):
+        raise AssertionError(f"herd: this process launched kernels: {own.read()}")
+    hc = herd["counters"]
+
     def origin_launches(name: str) -> dict:
         """Phase 13's launches of one wrapper, by leg."""
         return {leg: r["launches"].get(name, 0) for leg, r in origin_legs.items()
@@ -2569,6 +2908,9 @@ def main() -> int:
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_uniform"],
          "tracker_launches": fleet["launches"]["sha256_uniform"],
          "origin_http_launches": origin_launches("sha256_uniform"),
+         "herd_launches": {"origin": hc["origin_launches"]["sha256_uniform"],
+                           "agent": hc["agent_launches"]["sha256_uniform"]},
+         "herd_origin_ingest_windows": hc["origin_ingest_windows"],
          **sha_entry(uni_main, ROWS_KERNEL)},
         {"name": "sha256_ragged", **common,
          "replaces": "kraken_tpu/ops/sha256.py:140",
@@ -2578,6 +2920,11 @@ def main() -> int:
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_ragged"],
          "tracker_launches": fleet["launches"]["sha256_ragged"],
          "origin_http_launches": origin_launches("sha256_ragged"),
+         "herd_launches": {"origin": hc["origin_launches"]["sha256_ragged"],
+                           "agent": hc["agent_launches"]["sha256_ragged"]},
+         "herd_verify_batches": hc["agent_cuda_batches"],
+         "herd_rows_per_batch": hc["agent_verified_pieces"] / hc["agent_cuda_batches"],
+         "herd_origin_dedup_chunks": hc["origin_dedup_chunks"],
          **sha_entry(rag_main, ROWS_KERNEL)},
         {"name": "pack_tiles_device", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -2605,6 +2952,8 @@ def main() -> int:
          "bytes_bound_ms": gear_leg["bytes_bound_ms"], "library_ms": gear_library_ms,
          "sass_per_byte": gear_sass,
          "origin_http_launches": origin_launches("gear_candidates"),
+         "herd_launches": {"origin": hc["origin_launches"]["gear_candidates"],
+                           "agent": hc["agent_launches"]["gear_candidates"]},
          "shape": "one 64 MiB window", "plain_shape": "one 64 MiB window"},
         # A diagnostic on no path of the system: the main path launches it
         # no time; each decomposition's own launches stand beside.
@@ -2619,6 +2968,7 @@ def main() -> int:
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
         "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
         "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,
+        "herd_seconds": herd_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -117,6 +117,13 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def load() -> ctypes.CDLL:
+    """Build the kernel library if needed and load it into this process
+    (a node calls it at start, so a card that cannot run the kernels
+    fails the boot, not the first request)."""
+    return _load()
+
+
 def launch(entry: str, device: torch.device, *args) -> None:
     """Launch the C entry point ``entry(*args, stream)`` on ``device``'s
     current stream; raise if the launch was refused."""

@@ -10,8 +10,7 @@ Where it differs from the reference:
 
 - the ``/similar``, ``/recipe`` and ``/dedup/stats`` routes, and the chunk
   tier's conversion after dedup, are not ported (ROADMAP A7f): the routes
-  answer 404; ``delta=`` and ``cleanup=`` other than None raise
-  ``ValueError`` (A7f, A7e);
+  answer 404; ``delta=`` other than None raises ``ValueError`` (A7f);
 - ``stream_piece_hash`` defaults to the generator's hasher: hashlib piece
   hashes at stream time only for the ``cpu`` hasher. A ``cuda`` origin
   hashes its pieces on the card: through the ingest pipeline's windows at
@@ -479,7 +478,7 @@ class OriginServer(LameduckMixin):
         self_addr: str = "",
         scheduler=None,  # p2p Scheduler seeding our blobs (optional)
         dedup=None,  # origin.dedup.DedupIndex (optional)
-        cleanup=None,  # not ported yet (ROADMAP A7e): must be None
+        cleanup=None,  # store.cleanup.CleanupManager (optional)
         # None: hashlib at stream time only on ``cpu``-hasher origins.
         stream_piece_hash: bool | None = None,
         rpc=None,  # utils.deadline.RPCConfig (optional)
@@ -491,11 +490,6 @@ class OriginServer(LameduckMixin):
         serve_while_ingest: bool | None = None,  # seed from the spool
         quorum: QuorumConfig | None = None,  # write-durability contract
     ):
-        if cleanup is not None:
-            raise ValueError(
-                "OriginServer(cleanup=...): store/cleanup.py is not ported "
-                "yet (ROADMAP A7e)"
-            )
         if delta is not None:
             raise ValueError(
                 "OriginServer(delta=...): p2p/delta.py and the /recipe route "
@@ -516,6 +510,7 @@ class OriginServer(LameduckMixin):
         self.self_addr = self_addr
         self.scheduler = scheduler
         self.dedup = dedup
+        self.cleanup = cleanup
         # rpc: utils.deadline.RPCConfig (hedge/deadline knobs for the
         # heal-plane cluster client; None = defaults).
         self.rpc = rpc
@@ -1971,11 +1966,17 @@ class OriginServer(LameduckMixin):
             return web.json_response({"size": info.size})
         return web.json_response({"size": size})
 
+    def _touch(self, d: Digest) -> None:
+        """Feed the eviction clock on every read (throttled internally)."""
+        if self.cleanup is not None:
+            self.cleanup.touch(d)
+
     async def _download(self, req: web.Request) -> web.StreamResponse:
         await self._brownout_gate()
         ns = urllib.parse.unquote(req.match_info["ns"])
         d = self._digest(req)
         await self._ensure_local(ns, d)
+        self._touch(d)
         # One Range-capable streaming path (store/serve.py): the reader
         # pins the fd, so an eviction racing this request can never
         # 404/500 it. O(1) request memory for any blob size.
@@ -2007,6 +2008,7 @@ class OriginServer(LameduckMixin):
             metainfo = await self.generator.generate(d)
             if self.scheduler is not None:
                 self.scheduler.seed(metainfo, ns)
+        self._touch(d)  # metainfo fetch = imminent swarm read
         return web.Response(body=metainfo.serialize())
 
     async def _delete(self, req: web.Request) -> web.Response:

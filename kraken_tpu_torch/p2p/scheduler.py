@@ -131,6 +131,7 @@ class SchedulerConfig:
         bufpool_budget_mb: int = 256,
         data_plane_workers: int = 0,
         leech_workers: int = 0,
+        leech_ring_mb: int = 32,
         max_announce_inflight: int = 32,
     ):
         self.announce_interval = announce_interval_seconds
@@ -165,11 +166,13 @@ class SchedulerConfig:
         # seed-serve and leech worker processes; docs/OPERATIONS.md
         # "Data-plane workers", "Leech shard plane") is not in the port:
         # a config that asks for workers is refused, never quietly run
-        # on the main loop alone (refuse_data_plane_workers). The leech
-        # ring's size (the reference's leech_ring_mb) sizes only those
-        # workers, so it is no key here: from_dict rejects it.
+        # on the main loop alone (refuse_data_plane_workers).
+        # leech_ring_mb sizes EACH leech worker's ring; as in the
+        # reference, nothing reads it while leech_workers is 0, which is
+        # all the port takes.
         self.data_plane_workers = data_plane_workers
         self.leech_workers = leech_workers
+        self.leech_ring_mb = leech_ring_mb
         refuse_data_plane_workers(self)
         # PER-AGENT announce concurrency cap. The rate cap bounds how
         # many announces START per second; during a full tracker outage
@@ -348,7 +351,14 @@ class Scheduler:
         self.config = config
         self.conn_state.reconfigure(config.conn_state)
         self._bufpool.set_budget(config.bufpool_budget_mb << 20)
-        _log.info("scheduler config reloaded")
+        _log.info(
+            "scheduler config reloaded",
+            extra={
+                "wire_send_batch": config.wire_send_batch,
+                "bufpool_budget_mb": config.bufpool_budget_mb,
+                "max_announce_rate": config.max_announce_rate,
+            },
+        )
 
     def reload_pex(self, config: PexConfig) -> None:
         """Live swap of the YAML ``pex:`` section (SIGHUP): cadence,

@@ -524,6 +524,29 @@ class CAStore:
                 out.write(chunk)
 
 
+    def evictable_bytes(self, d: Digest) -> int:
+        """What evicting this blob would free: its flat size (the port's
+        store has no chunk tier, ROADMAP A7f). Raises ``KeyError`` when
+        the blob is not cached, as the reference does."""
+        try:
+            return os.path.getsize(self.cache_path(d))
+        except FileNotFoundError:
+            raise KeyError(str(d)) from None
+
+    def disk_usage_bytes(self) -> int:
+        """Bytes the store holds on disk: the cache tree PLUS quarantine.
+        Quarantined blobs are invisible to eviction (they are evidence),
+        but they are real disk -- excluding them would let watermark math
+        believe there is headroom while the volume fills."""
+        total = 0
+        for root in (self.cache_dir, self.quarantine_dir):
+            for dirpath, _dirnames, filenames in os.walk(root):
+                for name in filenames:
+                    with contextlib.suppress(FileNotFoundError):
+                        total += os.path.getsize(os.path.join(dirpath, name))
+        return total
+
+
 class FlatReader:
     """Positional reads over one fd (the reference keeps this class in
     ``store/chunkstore.py``, beside its chunk-tier twin)."""

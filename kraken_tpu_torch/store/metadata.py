@@ -2,15 +2,16 @@
 
 The agent's crash-resume depends on it: a restarted download reads the
 piece bitfield and only fetches missing pieces; the origin remembers a
-blob's namespace and its eviction pins. Each type serializes to bytes and
-lives at ``<data_path>._md_<name>`` -- the same file names and bytes as
-``kraken_tpu.store.metadata``, so either package reads the other's
-sidecars. ``TTIMetadata`` and ``ChunkManifestMetadata`` are not ported yet
-(ROADMAP A7e, A7f).
+blob's namespace, its eviction pins and its last access. Each type
+serializes to bytes and lives at ``<data_path>._md_<name>`` -- the same
+file names and bytes as ``kraken_tpu.store.metadata``, so either package
+reads the other's sidecars. ``ChunkManifestMetadata`` is not ported yet
+(ROADMAP A7f).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Type
 
 _REGISTRY: Dict[str, Type["Metadata"]] = {}
@@ -87,6 +88,23 @@ class PieceStatusMetadata(Metadata):
     def deserialize(cls, raw: bytes) -> "PieceStatusMetadata":
         n = int.from_bytes(raw[:4], "big")
         return cls(n, bytearray(raw[4:]))
+
+
+@register_metadata
+class TTIMetadata(Metadata):
+    """Last-access timestamp driving idle (TTI) eviction."""
+
+    name = "tti"
+
+    def __init__(self, last_access: float | None = None):
+        self.last_access = time.time() if last_access is None else last_access
+
+    def serialize(self) -> bytes:
+        return repr(self.last_access).encode()
+
+    @classmethod
+    def deserialize(cls, raw: bytes) -> "TTIMetadata":
+        return cls(float(raw.decode()))
 
 
 @register_metadata

@@ -73,6 +73,8 @@ KNOWN_FAILPOINTS = frozenset({
     "rpc.hedge.lose",
     "rpc.link.delay",
     "rpc.link.drop",
+    "store.fsck.orphan",
+    "store.scrub.bitflip",
     "tracker.announce.empty",
     "tracker.announce.error",
     "tracker.blackout",

@@ -3,8 +3,10 @@
 The port's own copy of the typed registry in ``kraken_tpu.utils.metrics``
 (stdlib only), with the same metric names, so a dashboard reads a GPU node
 as it reads a TPU one, and the throttled failure meter of the control loops
-(:class:`FailureMeter`). The HTTP mux, exemplars and the profiling route
-wait for the server slice.
+(:class:`FailureMeter`), and ``GET /metrics`` on every component app
+(:func:`instrument_app`). The per-endpoint middleware, the debug mux,
+exemplars and the profiling routes wait for the debug slice (ROADMAP
+A7e).
 """
 
 from __future__ import annotations
@@ -215,3 +217,52 @@ class FailureMeter:
             self._suppressed = 0
         else:
             self._suppressed += 1
+
+
+# The kernel wrappers whose launch counts /metrics shows, by module.
+_LAUNCH_MODULES = (
+    "kraken_tpu_torch.ops.sha256_cuda",
+    "kraken_tpu_torch.ops.cdc_cuda",
+    "kraken_tpu_torch.ops.transpose_cuda",
+)
+
+
+def kernel_launch_lines() -> str:
+    """``kernel_launches_total{kernel}``: each hand-written kernel's
+    launches in this process, as its wrapper counts them (the wrappers'
+    ``LAUNCHES``), for the wrappers this process has loaded. A process
+    that runs no kernel shows none. The port's own series: the reference
+    has no counterpart."""
+    import sys
+
+    counts: dict[str, int] = {}
+    for name in _LAUNCH_MODULES:
+        mod = sys.modules.get(name)
+        if mod is not None:
+            counts.update(mod.LAUNCHES)
+    if not counts:
+        return ""
+    lines = [
+        "# HELP kernel_launches_total Launches of each hand-written kernel"
+        " (its wrapper's count)",
+        "# TYPE kernel_launches_total counter",
+    ]
+    lines += [f'kernel_launches_total{{kernel="{k}"}} {v}'
+              for k, v in sorted(counts.items())]
+    return "\n".join(lines) + "\n"
+
+
+def instrument_app(app, component: str, registry: Registry = REGISTRY):
+    """Attach ``GET /metrics`` (the registry's Prometheus text, then
+    :func:`kernel_launch_lines`) to an ``http_lite`` app. The reference's
+    per-endpoint middleware (``http_requests_total``, latency, in-flight,
+    the server span) waits for middlewares in ``http_lite`` (ROADMAP
+    A7e)."""
+    from kraken_tpu_torch.utils import http_lite as web
+
+    async def metrics_endpoint(request):
+        text = registry.render() + kernel_launch_lines()
+        return web.Response(text=text, content_type="text/plain")
+
+    app.router.add_get("/metrics", metrics_endpoint)
+    return app

@@ -8,8 +8,11 @@ scheduler calls for every announce. Canary traffic
 windows, and kept apart in the counters so dashboards can exclude it
 (``slo_events_total{sli,result,canary}``).
 
-The evaluator (burn rates, the multi-window alerts, their gauges and the
-``/debug/slo`` document) waits for the debug slice.
+:meth:`SLOManager.apply` swaps the config at a node's start and on
+SIGHUP. The evaluator (its thread, burn rates, the multi-window alerts,
+their gauges and the ``/debug/slo`` document) waits for the debug slice
+(ROADMAP A7e), so ``eval_interval_seconds`` and the alert windows load
+and wait for it.
 """
 
 from __future__ import annotations
@@ -238,6 +241,7 @@ class SLOManager:
 
     def __init__(self, config: SLOConfig | None = None):
         self.config = config or SLOConfig()
+        self.node = ""  # component stamp (the node sets it)
         self._lock = threading.Lock()
         self._recorders: dict[str, SLIRecorder] = {}
         # Monotonic clock, injectable so tests drive deterministic
@@ -250,6 +254,22 @@ class SLOManager:
             "slo_events_total",
             "SLI events recorded, by sli, result, and canary flag",
         )
+
+    def apply(self, config: SLOConfig | dict | None) -> None:
+        """Live config swap (start + SIGHUP): objectives apply from the
+        next record. Recorders persist across reloads (history is the
+        whole point of a sliding window) unless the bucket geometry
+        changed."""
+        if not isinstance(config, SLOConfig):
+            config = SLOConfig.from_dict(config)
+        old = self.config
+        self.config = config
+        with self._lock:
+            if (
+                old.bucket_seconds != config.bucket_seconds
+                or old.horizon_seconds != config.horizon_seconds
+            ):
+                self._recorders.clear()
 
     # -- recording ---------------------------------------------------------
 

@@ -315,10 +315,9 @@ class Tracer:
         # child process). Must never raise into finish().
         self.on_record = None
         # Hook fired on every dump trigger (breaker trip, deadline,
-        # resource breach, lameduck), before the dump_dir gate. In the
-        # reference the profiler registers its stack capture here; the
-        # port's capture waits for the debug slice, so nothing does yet.
-        # Must never raise.
+        # resource breach, lameduck), before the dump_dir gate: the
+        # nodes register the profiler's stack capture here
+        # (SamplingProfiler.trigger_capture). Must never raise.
         self.on_trigger = None
         self._rng = random.Random()
         self._dump_lock = threading.Lock()

@@ -55,7 +55,12 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
                    "persistedretry/__init__.py", "persistedretry/manager.py",
                    "store/castore.py", "store/metadata.py", "store/serve.py",
                    "origin/client.py", "origin/blobrefresh.py", "origin/writeback.py",
-                   "origin/server.py", "core/ingest.py"):
+                   "origin/server.py", "core/ingest.py", "utils/yaml_lite.py",
+                   "configutil.py", "utils/structlog.py", "store/cleanup.py",
+                   "store/recovery.py", "store/scrub.py", "utils/profiler.py",
+                   "utils/resources.py", "utils/canary.py", "p2p/delta.py",
+                   "store/chunkstore.py", "agent/server.py", "utils/metrics.py",
+                   "assembly.py", "cli.py"):
         assert f"kraken_tpu_torch/{module}" in scanned, module
     bad = {
         str(f.relative_to(REPO)): m
@@ -241,6 +246,41 @@ def test_slice_runs_without_jax_or_kraken_tpu_loaded():
     assert out["chunks"] > 1000
     assert out == {"pieces": 6, "ingest_pieces": 1025, "chunks": out["chunks"], "handout": 1,
                    "origin_pieces": 6, "forbidden": []}
+
+
+_CLI_CHILD = r"""
+import asyncio, json, sys
+import kraken_tpu_torch.cli as cli
+
+async def boot(node, describe, config_path=None):
+    await node.start()
+    await node.stop()
+
+cli._run_until_signal = boot
+cli.main(sys.argv[1:])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "kraken_tpu", "msgpack", "yaml", "aiohttp"))
+print(json.dumps({"forbidden": bad, "port": "kraken_tpu_torch.assembly" in sys.modules}))
+"""
+
+
+@pytest.mark.parametrize("component", ["tracker", "origin", "agent"])
+def test_a_cli_node_loads_none_of_the_forbidden_packages(tmp_path, component):
+    """What ``python -m kraken_tpu_torch.cli <component>`` runs -- the
+    config read, the node built from the shipped development file,
+    started and stopped -- in a fresh interpreter, then its
+    ``sys.modules``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    args = ["--config", str(REPO / "config" / component / "development.yaml"), "--port", "0"]
+    if component != "tracker":
+        args += ["--p2p-port", "0", "--store", str(tmp_path / "s"), "--tracker", "127.0.0.1:1"]
+    r = subprocess.run(
+        [sys.executable, "-c", _CLI_CHILD, component, *args], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == {"forbidden": [], "port": True}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):

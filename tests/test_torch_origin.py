@@ -566,8 +566,37 @@ def test_stream_piece_hash_follows_the_generators_hasher(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [({"delta": object()}, "A7f"), ({"cleanup": object()}, "A7e")])
 def test_unported_wiring_is_refused_by_name(tmp_path, kw, item):
-    with pytest.raises(ValueError, match=item):
-        port_origin(tmp_path / "o", **kw)
+    """``delta=`` waits for A7f and is refused by name. ``cleanup=``, which
+    A7e's first part brought (``store/cleanup.py``), is taken now, and the
+    origin touches the eviction clock on every read as the reference's
+    ``_touch`` does."""
+    if item == "A7f":
+        with pytest.raises(ValueError, match=item):
+            port_origin(tmp_path / "o", **kw)
+        return
+    from kraken_tpu_torch.store.cleanup import CleanupManager
+
+    blob = blob_of(50_000, 14)
+    d = Digest.from_bytes(blob)
+
+    async def main():
+        origin = port_origin(tmp_path / "o")
+        origin.cleanup = CleanupManager(origin.store)
+        addr, stop = await serve("port", origin)
+        try:
+            c = BlobClient(addr)
+            await c.upload(NS, d, blob)
+            assert d.hex not in origin.cleanup._touched
+            assert await c.download(NS, d) == blob
+            first = origin.cleanup._touched[d.hex]
+            await c.get_metainfo(NS, d)
+            await c.close()
+            return first, origin.cleanup._touched[d.hex]
+        finally:
+            await stop()
+
+    first, second = asyncio.run(main())
+    assert 0 < first <= second
 
 
 def test_dedup_runs_after_commit_and_its_routes_are_absent(tmp_path):

@@ -10,6 +10,7 @@ against ``kraken_tpu``'s."""
 
 import asyncio
 import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -375,15 +376,29 @@ def test_the_multi_core_data_plane_is_refused(tmp_path, knob, how):
     assert SchedulerConfig().data_plane_workers == SchedulerConfig().leech_workers == 0
 
 
-def test_the_leech_ring_size_is_no_port_key():
-    """``leech_ring_mb`` sizes only the leech workers' rings, which the
-    port does not have: it is an unknown key, never a setting that is
-    stored and ignored."""
-    with pytest.raises(ValueError, match="leech_ring_mb"):
-        SchedulerConfig.from_dict({"leech_ring_mb": 8})
-    with pytest.raises(TypeError):
-        SchedulerConfig(leech_ring_mb=8)
-    assert not hasattr(SchedulerConfig(), "leech_ring_mb")
+def test_the_shipped_scheduler_sections_load_and_workers_stay_refused():
+    """The shipped agent files set ``leech_ring_mb: 32`` beside
+    ``leech_workers: 0``: the port takes the key, stores it as the
+    reference does, and nothing reads it while the workers stay at 0.
+    Any worker count above 0 is still refused, naming A7g."""
+    import yaml
+
+    from kraken_tpu.configutil import load_config as jax_load_config
+    from kraken_tpu.p2p.scheduler import SchedulerConfig as JaxSchedulerConfig
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "config"
+    for name in ("agent/base.yaml", "agent/development.yaml",
+                 "origin/base.yaml", "origin/development.yaml"):
+        doc = jax_load_config(str(root / name))["scheduler"]
+        port, ref = SchedulerConfig.from_dict(doc), JaxSchedulerConfig.from_dict(doc)
+        for key in doc:
+            assert getattr(port, key) == getattr(ref, key), (name, key)
+    assert "leech_ring_mb" in yaml.safe_load((root / "agent/base.yaml").read_text())["scheduler"]
+    assert SchedulerConfig.from_dict({"leech_ring_mb": 8}).leech_ring_mb == 8
+    assert SchedulerConfig().leech_ring_mb == JaxSchedulerConfig().leech_ring_mb == 32
+    for knob in ("leech_workers", "data_plane_workers"):
+        with pytest.raises(ValueError, match="A7g"):
+            SchedulerConfig.from_dict({"leech_ring_mb": 32, knob: 1})
 
 
 def test_a_pull_reports_its_plane_split_while_the_profiler_runs(tmp_path, monkeypatch):
@@ -424,8 +439,11 @@ def test_a_pull_reports_its_plane_split_while_the_profiler_runs(tmp_path, monkey
     cum = prof.plane_cumulative()
     assert split and all(0 < n <= cum[plane] for plane, n in split.items())
     assert samples.value() - before == sum(cum.values())
-    with pytest.raises(ValueError, match="dump_dir"):
-        port_profiler.ProfilerConfig.from_dict({"dump_dir": "/tmp"})
+    # Every field of the reference's section is a port key (the nodes
+    # read them); a key of neither is still refused.
+    assert port_profiler.ProfilerConfig.from_dict({"dump_dir": "/tmp"}).dump_dir == "/tmp"
+    with pytest.raises(ValueError, match="unknown profiling config keys"):
+        port_profiler.ProfilerConfig.from_dict({"dump_path": "/tmp"})
 
 
 def test_torrent_surface_matches_the_reference(tmp_path):
