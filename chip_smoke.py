@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs fourteen phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs fifteen phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -211,13 +211,46 @@ without a result:
    phase. It prints each child's time to READY, the upload's stream,
    commit and 201, the pull's wall and GB/s, the verify batches and rows
    a batch, and the drain times.
+15. ``front_door`` -- ``docker push`` and ``docker pull`` as users run
+   them: tracker, origin, build-index, proxy and agent as five processes
+   of ``python -m kraken_tpu_torch.cli``, all started at once on ports
+   picked beforehand, each from a config that extends the shipped
+   ``config/<component>/base.yaml`` and overrides only its host, ports
+   (0), store, ``backends: []`` and the agent's ``registry_port: 0``,
+   the addresses as flags; origin and agent with ``--hasher cuda``. The
+   image ``library/app:v1``: a config blob, BASELINE.json config 2's two
+   layers (``swarm_layers()``) and config 1's 1 GiB as a third, seeded.
+   (a) The push through the proxy, with the port's ``http_lite`` client
+   doing what ``docker push`` does: per blob HEAD (404), POST (202 and
+   ``Location``), 16 MiB PATCH bodies, PUT ``?digest=`` (201), then the
+   schema2 manifest by tag; each finalize split by ``UploadWatch`` from
+   the origin's store tree into the proxy's hashlib digest of its spool,
+   its upload to the origin and the origin's commit. (b) The pull by tag
+   through the agent's registry: the manifest with docker's three Accept
+   lines (byte-identical), each blob by digest (its SHA-256 = its
+   digest; the wall split at the response head into the swarm pull and
+   the serve), a HEAD of the 1 GiB layer, a ``Range: bytes=<mid>-`` GET
+   (206, exactly the slice), ``tags/list``; then a second pull of the
+   tag, served from the agent's cache. (c) A POST to the agent's
+   registry answers ``UNSUPPORTED``; every answer carries
+   ``Docker-Distribution-API-Version: registry/2.0``. (d) SIGTERM to each
+   child: exit 0 within its ``rpc.drain_timeout_seconds``. Gates from the
+   children's ``/metrics`` and the build-index: the origin's
+   ``hasher_pieces_total{hasher="cuda"}`` risen by every pushed blob's
+   pieces plus its dedup chunks, ``{hasher="cpu"}`` unmoved, one ingest
+   window a 64 MiB; ``sha256_uniform``, ``sha256_ragged`` and
+   ``gear_candidates`` launched at the origin; every agent verify batch
+   on the card, at least the image's bytes hashed there; the second pull
+   launching nothing; the build-index's tag equal to the manifest's
+   digest; this process launching nothing.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
 swarm leg and the tracker phase's pulls, and each seeder's metainfo; each
-leg of phase 13; phase 14's children, through their ``/metrics``) and
+leg of phase 13; phase 14's and phase 15's children, through their
+``/metrics``) and
 read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -244,6 +277,7 @@ the bound: how far the build is from the function's work.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import hashlib
 import json
@@ -1795,35 +1829,42 @@ HERD_WINDOW = 64 * MiB  # the shipped ingest.window_bytes and the gear pass's wi
 
 class HerdChild:
     """One ``python -m kraken_tpu_torch.cli`` child: its READY document,
-    its time to READY, its stderr in a file."""
+    its time to READY, its stderr in a file. With ``wait=False`` the
+    caller starts several and then calls ``wait_ready`` on each."""
 
-    def __init__(self, root: str, name: str, args: list[str]):
+    def __init__(self, root: str, name: str, args: list[str], wait: bool = True):
         self.name = name
         self.err_path = os.path.join(root, f"{name}.stderr")
-        t0 = time.perf_counter()
+        self._t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "kraken_tpu_torch.cli", *args],
             stdout=subprocess.PIPE, stderr=open(self.err_path, "w"), cwd=REPO, text=True,
             env=dict(os.environ, PYTHONPATH=str(REPO)),
         )
-        ready = threading.Event()
+        self._ready = threading.Event()
+        self._ready_at = 0.0
         self.ready: dict = {}
 
         def read() -> None:
             for line in self.proc.stdout:
                 if line.startswith("READY "):
+                    self._ready_at = time.perf_counter()
                     self.ready.update(json.loads(line[6:]))
-                    ready.set()
-            ready.set()
+                    self._ready.set()
+            self._ready.set()
 
         threading.Thread(target=read, daemon=True).start()
-        ready.wait(HERD_READY_S)
+        if wait:
+            self.wait_ready()
+
+    def wait_ready(self) -> None:
+        self._ready.wait(HERD_READY_S)
         if not self.ready:
             self.stop(kill=True)
-            sys.stderr.write(f"--- herd {name} stderr ---\n{self.log()[-8000:]}\n")
-            raise AssertionError(f"herd: {name} died or hung before READY "
+            sys.stderr.write(f"--- herd {self.name} stderr ---\n{self.log()[-8000:]}\n")
+            raise AssertionError(f"herd: {self.name} died or hung before READY "
                                  f"(rc {self.proc.returncode})")
-        self.ready_s = time.perf_counter() - t0
+        self.ready_s = self._ready_at - self._t0
         self.addr = self.ready["addr"]
 
     def log(self) -> str:
@@ -1849,14 +1890,23 @@ def metric(text: str, name: str, **labels) -> float:
     return 0.0
 
 
+def delta(before: str, after: str, name: str, **labels) -> float:
+    """How far one sample moved between two expositions."""
+    return metric(after, name, **labels) - metric(before, name, **labels)
+
+
 def herd_config(root: str, component: str, extra: str = "") -> str:
-    """A config extending the shipped base by its relative path."""
+    """A config extending the shipped base by its relative path, with only
+    the keys the component reads: host and ports, its store, no
+    backends."""
     base = os.path.relpath(REPO / "config" / component / "base.yaml", root)
     path = os.path.join(root, f"{component}.yaml")
     body = [f"extends: {base}", "host: 127.0.0.1", "port: 0"]
-    if component != "tracker":
-        body += ["p2p_port: 0", f"store: {os.path.join(root, component)}"]
-    if component == "origin":
+    if component in ("origin", "agent"):
+        body += ["p2p_port: 0"]
+    if component in ("origin", "agent", "build-index"):
+        body += [f"store: {os.path.join(root, component)}"]
+    if component in ("origin", "build-index"):
         body += ["backends: []"]
     with open(path, "w") as f:
         f.write("\n".join(body) + "\n" + extra)
@@ -1959,10 +2009,6 @@ def herd_phase(root: str, card_name_power: str) -> dict:
                                  "hashlib's piece hashes")
         o1, a1 = origin.metrics(), agent.metrics()
         m = r["marks"]
-
-        def delta(before, after, name, **labels):
-            return metric(after, name, **labels) - metric(before, name, **labels)
-
         pieces = len(want_pieces) // 32
         # The origin's dedup pass runs after the 201 (chunking on the gear
         # kernel, fingerprints through the cuda hasher): wait for it, so
@@ -1973,9 +2019,6 @@ def herd_phase(root: str, card_name_power: str) -> dict:
                 raise AssertionError("herd: the origin's dedup pass did not finish")
             time.sleep(0.5)
             o1 = origin.metrics()
-
-        def delta(before, after, name, **labels):
-            return metric(after, name, **labels) - metric(before, name, **labels)
 
         kernels = ("sha256_uniform", "sha256_ragged", "gear_candidates")
         got = {
@@ -2064,6 +2107,373 @@ def herd_phase(root: str, card_name_power: str) -> dict:
               "drain_to_exit_s": drains, "card": card_name_power})
         return {"ready_s": ready, "pull_s": r["pull_s"], "counters": got,
                 "upload_to_201_s": m["acked"] - m["start"]}
+    finally:
+        for c in children:
+            c.stop(kill=True)
+
+
+# -- phase 15, the front door -------------------------------------------------
+# docker push to the proxy, docker pull by tag from the agent's registry
+# endpoint: tracker, origin, build-index, proxy and agent as five processes of
+# the port's CLI, from configs extending the shipped base files. The image:
+# a config blob, BASELINE.json config 2's two layers (``swarm_layers()``) and
+# config 1's 1 GiB as a third layer, the size of an ML image's framework layer.
+FRONT_REPO = "library/app"
+FRONT_TAG = "v1"
+FRONT_BIG = GiB
+FRONT_CHUNK = 16 * MiB  # docker's PATCH bodies, as BlobClient's
+FRONT_TIMEOUT_S = 300.0
+DOCKER2 = "application/vnd.docker.distribution.manifest.v2+json"
+DOCKER_ACCEPT = [("Accept", DOCKER2),
+                 ("Accept", "application/vnd.docker.distribution.manifest.list.v2+json"),
+                 ("Accept", "application/vnd.oci.image.manifest.v1+json")]
+REGISTRY_VERSION = ("Docker-Distribution-API-Version", "registry/2.0")
+
+
+class UploadWatch:
+    """Marks the proxy's finalize from the origin's store tree, polled
+    every 2 ms on a thread: when the proxy's upload session appears under
+    ``upload/`` (its digest done), when that file holds every byte (its
+    upload stream done), and when the blob lands in ``cache/`` (the
+    origin's commit done)."""
+
+    def __init__(self, store_root: str, hex_: str, size: int):
+        self.upload_dir = os.path.join(store_root, "upload")
+        self.cache_path = os.path.join(store_root, "cache", hex_[:2], hex_[2:4], hex_)
+        self.size = size
+        self.marks: dict = {}
+        self._stop = threading.Event()
+        self._before = set(os.listdir(self.upload_dir))
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self) -> None:
+        while not self._stop.is_set():
+            now = time.perf_counter()
+            if "cached" not in self.marks:
+                new = set(os.listdir(self.upload_dir)) - self._before
+                if new and "upload_seen" not in self.marks:
+                    self.marks["upload_seen"] = now
+                for name in new:
+                    with contextlib.suppress(OSError):
+                        if os.path.getsize(os.path.join(self.upload_dir, name)) >= self.size:
+                            self.marks.setdefault("upload_full", now)
+                if os.path.exists(self.cache_path):
+                    self.marks["cached"] = now
+            time.sleep(0.002)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        return self.marks
+
+
+def front_door_image() -> tuple[list[bytes], bytes]:
+    """The image's blobs (config first) and its schema2 manifest."""
+    from kraken_tpu_torch import Digest
+
+    layers = [*swarm_layers().values(), np.random.default_rng(SEED + 80).bytes(FRONT_BIG)]
+    config = json.dumps({"architecture": "amd64", "os": "linux",
+                         "rootfs": {"type": "layers", "diff_ids": [
+                             str(Digest.from_bytes(b)) for b in layers]}}).encode()
+    manifest = json.dumps({
+        "schemaVersion": 2, "mediaType": DOCKER2,
+        "config": {"mediaType": "application/vnd.docker.container.image.v1+json",
+                   "size": len(config), "digest": str(Digest.from_bytes(config))},
+        "layers": [{"mediaType": "application/vnd.docker.image.rootfs.diff.tar.gzip",
+                    "size": len(b), "digest": str(Digest.from_bytes(b))} for b in layers],
+    }).encode()
+    return [config, *layers], manifest
+
+
+def front_door_phase(root: str, card_name_power: str) -> dict:
+    """Phase 15: push through the proxy, pull by tag through the agent.
+    Returns the numbers and the children's counters that the kernels line
+    carries."""
+    from kraken_tpu_torch import Digest
+    from kraken_tpu_torch.configutil import load_config
+    from kraken_tpu_torch.origin.metainfogen import PieceLengthConfig
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.deadline import RPCConfig
+
+    children: list[HerdChild] = []
+    hasher = ["--hasher", HERD_HASHER]
+    try:
+        # Every child at once, each on a port picked beforehand, so that
+        # none waits for another's READY.
+        t_port, o_port, b_port, p_port = free_ports(4)
+        t_addr, o_addr, b_addr = (f"127.0.0.1:{p}" for p in (t_port, o_port, b_port))
+        specs = {
+            "tracker": ["--port", str(t_port), "--origins", o_addr],
+            "origin": ["--port", str(o_port), "--tracker", t_addr, *hasher],
+            "build-index": ["--port", str(b_port), "--origins", o_addr],
+            "proxy": ["--port", str(p_port), "--origins", o_addr, "--build-index", b_addr],
+            "agent": ["--tracker", t_addr, "--build-index", b_addr, *hasher],
+        }
+        for name, flags in specs.items():
+            extra = "registry_port: 0\n" if name == "agent" else ""
+            cfg = herd_config(root, name, extra)
+            children.append(HerdChild(root, name, [name, "--config", cfg, *flags], wait=False))
+        for c in children:
+            c.wait_ready()
+        tracker, origin, bindex, proxy, agent = children
+        registry = agent.ready.get("registry_addr")
+        if not registry:
+            raise AssertionError(f"front door: the agent reported no registry: {agent.ready}")
+        ready = {c.name: c.ready_s for c in children}
+        emit({"phase": "front_door", "ready_s": ready,
+              "addrs": {**{c.name: c.addr for c in children}, "agent_registry": registry},
+              "what": "five processes started together; time from spawn to READY (the "
+                      "build-index and the proxy load no kernel library)",
+              "card": card_name_power})
+
+        blobs, manifest = front_door_image()
+        digests = [Digest.from_bytes(b) for b in blobs]
+        m_digest = Digest.from_bytes(manifest)
+        lengths = PieceLengthConfig()
+        origin_blobs = [*blobs, manifest]
+        pieces = sum(-(-len(b) // lengths.piece_length(len(b))) for b in origin_blobs)
+        windows = sum(-(-len(b) // HERD_WINDOW) for b in origin_blobs)
+        layer_bytes = sum(len(b) for b in blobs)
+        o0, a0 = origin.metrics(), agent.metrics()
+        timeout = http_lite.ClientTimeout(total=FRONT_TIMEOUT_S)
+        versions: list[str | None] = []
+
+        def seen(resp) -> None:
+            versions.append(resp.headers.get(REGISTRY_VERSION[0]))
+
+        async def push() -> list[dict]:
+            base = f"http://{proxy.addr}/v2/{FRONT_REPO}"
+            out = []
+            async with http_lite.ClientSession(timeout=timeout) as s:
+                for blob, d in zip(blobs, digests):
+                    leg = {"blob_bytes": len(blob)}
+                    async with s.request("HEAD", f"{base}/blobs/{d}") as r:
+                        seen(r)
+                        if r.status != 404:
+                            raise AssertionError(f"front door: HEAD before push {r.status}")
+                    async with s.request("POST", f"{base}/blobs/uploads/") as r:
+                        seen(r)
+                        await r.read()
+                        if r.status != 202 or "Location" not in r.headers:
+                            raise AssertionError(f"front door: POST {r.status}")
+                        loc = f"http://{proxy.addr}{r.headers['Location']}"
+                    view = memoryview(blob)
+                    t0 = time.perf_counter()
+                    for off in range(0, len(blob), FRONT_CHUNK):
+                        async with s.request("PATCH", loc, data=view[off:off + FRONT_CHUNK]) as r:
+                            seen(r)
+                            await r.read()
+                            if r.status != 202:
+                                raise AssertionError(f"front door: PATCH {r.status}")
+                    t1 = time.perf_counter()
+                    watch = UploadWatch(os.path.join(root, "origin"), d.hex, len(blob))
+                    try:
+                        async with s.request("PUT", f"{loc}?digest={d}") as r:
+                            seen(r)
+                            body = await r.read()
+                            t2 = time.perf_counter()
+                    finally:
+                        marks = watch.stop()
+                    if r.status != 201:
+                        raise AssertionError(f"front door: PUT ?digest= {r.status} {body[:300]}")
+                    leg.update(patch_s=t1 - t0, patch_gbps=len(blob) / (t1 - t0) / 1e9,
+                               finalize_s=t2 - t1, to_201_s=t2 - t0)
+                    if {"upload_seen", "upload_full", "cached"} <= set(marks):
+                        leg.update(proxy_digest_s=marks["upload_seen"] - t1,
+                                   upload_to_origin_s=marks["upload_full"] - marks["upload_seen"],
+                                   origin_commit_s=marks["cached"] - marks["upload_full"],
+                                   after_commit_s=t2 - marks["cached"])
+                    out.append(leg)
+                t0 = time.perf_counter()
+                async with s.request("PUT", f"{base}/manifests/{FRONT_TAG}", data=manifest,
+                                     headers={"Content-Type": DOCKER2}) as r:
+                    seen(r)
+                    await r.read()
+                    if r.status != 201 or r.headers.get("Docker-Content-Digest") != str(m_digest):
+                        raise AssertionError(f"front door: manifest PUT {r.status}")
+                out.append({"manifest_put_s": time.perf_counter() - t0})
+            return out
+
+        t0 = time.perf_counter()
+        pushed = asyncio.run(push())
+        push_s = time.perf_counter() - t0
+
+        async def pull(timed: bool) -> dict:
+            base = f"http://{registry}/v2/{FRONT_REPO}"
+            got = {"blobs": []}
+            async with http_lite.ClientSession(timeout=timeout) as s:
+                t0 = time.perf_counter()
+                async with s.request("GET", f"{base}/manifests/{FRONT_TAG}",
+                                     headers=DOCKER_ACCEPT) as r:
+                    seen(r)
+                    head_s = time.perf_counter() - t0
+                    body = await r.read()
+                if r.status != 200 or body != manifest:
+                    raise AssertionError(f"front door: manifest by tag {r.status}, "
+                                         f"identical {body == manifest}")
+                got["manifest"] = {"swarm_s": head_s, "serve_s": time.perf_counter() - t0 - head_s}
+                doc = json.loads(body)
+                for ref in [doc["config"], *doc["layers"]]:
+                    h = hashlib.sha256()
+                    t0 = time.perf_counter()
+                    async with s.request("GET", f"{base}/blobs/{ref['digest']}") as r:
+                        seen(r)
+                        head_s = time.perf_counter() - t0
+                        async for chunk in r.content.iter_chunked(1 << 20):
+                            h.update(chunk)
+                    wall = time.perf_counter() - t0
+                    if r.status != 200 or "sha256:" + h.hexdigest() != ref["digest"]:
+                        raise AssertionError(f"front door: blob {ref['digest'][:19]} "
+                                             f"{r.status}, digest {h.hexdigest()[:12]}")
+                    got["blobs"].append({"blob_bytes": ref["size"], "swarm_s": head_s,
+                                         "serve_s": wall - head_s,
+                                         "gbps": ref["size"] / wall / 1e9})
+                if not timed:
+                    return got
+                big = str(digests[-1])
+                async with s.request("HEAD", f"{base}/blobs/{big}") as r:
+                    seen(r)
+                    if r.status != 200 or r.headers.get("Content-Length") != str(FRONT_BIG):
+                        raise AssertionError(f"front door: HEAD {r.status} "
+                                             f"{r.headers.get('Content-Length')}")
+                mid = FRONT_BIG // 2 + 12_345
+                h = hashlib.sha256()
+                t0 = time.perf_counter()
+                async with s.request("GET", f"{base}/blobs/{big}",
+                                     headers={"Range": f"bytes={mid}-"}) as r:
+                    seen(r)
+                    async for chunk in r.content.iter_chunked(1 << 20):
+                        h.update(chunk)
+                    got["range"] = {"status": r.status, "bytes": FRONT_BIG - mid,
+                                    "content_range": r.headers.get("Content-Range"),
+                                    "s": time.perf_counter() - t0}
+                if (r.status != 206 or h.digest() != hashlib.sha256(
+                        memoryview(blobs[-1])[mid:]).digest()
+                        or got["range"]["content_range"] != f"bytes {mid}-{FRONT_BIG - 1}/{FRONT_BIG}"):
+                    raise AssertionError(f"front door: Range resume {got['range']}")
+                async with s.request("GET", f"{base}/tags/list") as r:
+                    seen(r)
+                    tags = await r.json()
+                if tags != {"name": FRONT_REPO, "tags": [FRONT_TAG]}:
+                    raise AssertionError(f"front door: tags/list {tags}")
+                async with s.request("POST", f"{base}/blobs/uploads/") as r:
+                    seen(r)
+                    err = await r.json()
+                got["read_only"] = (r.status, err["errors"][0]["code"])
+                if got["read_only"] != (405, "UNSUPPORTED"):
+                    raise AssertionError(f"front door: POST to the agent {got['read_only']}")
+            return got
+
+        t0 = time.perf_counter()
+        first = asyncio.run(pull(timed=True))
+        pull_s = time.perf_counter() - t0
+        # Every counter below holds the whole path: wait for the origin's
+        # dedup pass over each blob it committed.
+        o1 = origin.metrics()
+        deadline = time.perf_counter() + FRONT_TIMEOUT_S
+        while (metric(o1, "origin_dedup_indexed_blobs")
+               - metric(o0, "origin_dedup_indexed_blobs") < len(origin_blobs)):
+            if time.perf_counter() > deadline:
+                raise AssertionError("front door: the origin's dedup pass did not finish")
+            time.sleep(0.5)
+            o1 = origin.metrics()
+        a1 = agent.metrics()
+        t0 = time.perf_counter()
+        second = asyncio.run(pull(timed=False))
+        second_s = time.perf_counter() - t0
+        a2 = agent.metrics()
+        kernels = ("sha256_uniform", "sha256_ragged", "gear_candidates")
+        got = {
+            "origin_cuda_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cuda"),
+            "origin_cpu_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cpu"),
+            "origin_ingest_windows": delta(o0, o1, "ingest_windows_total", hasher="cuda"),
+            "origin_dedup_chunks": delta(o0, o1, "origin_dedup_unique_chunks"),
+            "origin_dedup_duplicate_bytes": delta(o0, o1, "origin_dedup_duplicate_bytes"),
+            "origin_chunk_route_bps": {path: metric(o1, "dedup_chunk_route_bps", path=path)
+                                       for path in ("host", "device")},
+            "agent_cuda_batches": delta(a0, a1, "verify_batches_total", path="cuda"),
+            "agent_host_batches": delta(a0, a1, "verify_batches_total", path="host"),
+            "agent_verified_pieces": delta(a0, a1, "verify_pieces_total"),
+            "agent_cuda_bytes": delta(a0, a1, "hasher_bytes_total", hasher="cuda"),
+            "agent_cpu_bytes": delta(a0, a1, "hasher_bytes_total", hasher="cpu"),
+            "origin_launches": {k: delta(o0, o1, "kernel_launches_total", kernel=k)
+                                for k in kernels},
+            "agent_launches": {k: delta(a0, a1, "kernel_launches_total", kernel=k)
+                               for k in kernels},
+            "second_pull_agent_launches": {k: delta(a1, a2, "kernel_launches_total", kernel=k)
+                                           for k in kernels},
+            "second_pull_verify_batches": delta(a1, a2, "verify_batches_total", path="cuda")
+            + delta(a1, a2, "verify_batches_total", path="host"),
+        }
+        if (got["origin_cpu_pieces"] or got["origin_dedup_duplicate_bytes"]
+                or got["origin_cuda_pieces"] != pieces + got["origin_dedup_chunks"]
+                or got["origin_ingest_windows"] != windows):
+            raise AssertionError(f"front door: origin piece hashing, {pieces} pieces and "
+                                 f"{windows} windows expected: {got}")
+        if got["agent_cuda_batches"] < 1 or got["agent_host_batches"] or got["agent_cpu_bytes"]:
+            raise AssertionError(f"front door: agent verify {got}")
+        if got["agent_cuda_bytes"] < layer_bytes or got["agent_verified_pieces"] < pieces:
+            raise AssertionError(f"front door: the agent verified less than the image on the "
+                                 f"card: {got}")
+        if (not got["origin_launches"]["sha256_uniform"] or not got["agent_launches"]["sha256_ragged"]
+                or not got["origin_launches"]["sha256_ragged"]
+                or not got["origin_launches"]["gear_candidates"]):
+            raise AssertionError(f"front door: a kernel of the path did not launch: {got}")
+        if any(got["second_pull_agent_launches"].values()) or got["second_pull_verify_batches"]:
+            raise AssertionError(f"front door: the second pull verified again: {got}")
+        if any(v != REGISTRY_VERSION[1] for v in versions):
+            raise AssertionError(f"front door: a registry answer lacks {REGISTRY_VERSION}")
+        with urllib.request.urlopen(
+                f"http://{bindex.addr}/tags/{quote(f'{FRONT_REPO}:{FRONT_TAG}', safe='')}",
+                timeout=30) as r:
+            tag_digest = r.read().decode()
+        if tag_digest != str(m_digest):
+            raise AssertionError(f"front door: the build-index holds {tag_digest}")
+        emit({"phase": "front_door", "leg": "push", "blobs": pushed, "push_s": push_s,
+              "origin_pieces": pieces, "origin_ingest_windows": got["origin_ingest_windows"],
+              "origin_cuda_pieces": got["origin_cuda_pieces"],
+              "origin_dedup_chunks": got["origin_dedup_chunks"],
+              "origin_launches": got["origin_launches"],
+              "origin_chunk_route": max(got["origin_chunk_route_bps"],
+                                        key=got["origin_chunk_route_bps"].get),
+              "origin_chunk_route_bps": got["origin_chunk_route_bps"],
+              "what": "per blob: PATCH stream into the proxy; finalize = the proxy's hashlib "
+                      "digest of its spool, its upload_from_file to the origin, the origin's "
+                      "commit (marked from the origin's store tree)", "card": card_name_power})
+        batches = got["agent_cuda_batches"]
+        emit({"phase": "front_door", "leg": "pull", "pull_s": pull_s, "first": first,
+              "second_pull_s": second_s, "second": second,
+              "verify_batches": batches, "rows_per_batch": got["agent_verified_pieces"] / batches,
+              "agent_launches": got["agent_launches"], "agent_cuda_bytes": got["agent_cuda_bytes"],
+              "second_pull_agent_launches": got["second_pull_agent_launches"],
+              "checks": ["manifest by tag byte-identical (docker's three Accept lines)",
+                         "every blob's SHA-256 = its digest", "HEAD Content-Length",
+                         "Range resume = the slice (206)", "tags/list", "POST -> UNSUPPORTED",
+                         "the version header on every answer",
+                         "build-index tag = the manifest's digest",
+                         f"{pieces} pieces hashed on the card at the origin, none by hashlib",
+                         "every verify batch on the card at the agent",
+                         "the second pull launched nothing"],
+              "card": card_name_power})
+
+        # SIGTERM: each child exits 0 within its rpc.drain_timeout_seconds
+        # (the build-index and the proxy have no drain: they stop at once).
+        drains = {}
+        for c in (agent, proxy, bindex, origin, tracker):
+            cfg = load_config(str(REPO / "config" / c.name / "base.yaml"))
+            limit = RPCConfig.from_dict(cfg.get("rpc")).drain_timeout_seconds
+            t0 = time.perf_counter()
+            rc = c.stop()
+            drains[c.name] = time.perf_counter() - t0
+            quiesced = c.name in ("build-index", "proxy") or "drain quiesced" in c.log()
+            if rc != 0 or drains[c.name] > limit or not quiesced:
+                raise AssertionError(f"front door: {c.name} exit {rc} after "
+                                     f"{drains[c.name]:.1f} s:\n" + c.log()[-3000:])
+        children.clear()
+        emit({"phase": "front_door", "leg": "signals", "drain_to_exit_s": drains,
+              "card": card_name_power})
+        return {"ready_s": ready, "push_s": push_s, "pull_s": pull_s, "counters": got}
     finally:
         for c in children:
             c.stop(kill=True)
@@ -2881,6 +3291,20 @@ def main() -> int:
         raise AssertionError(f"herd: this process launched kernels: {own.read()}")
     hc = herd["counters"]
 
+    # -- 15. front_door: docker push to the proxy, pull by tag from the agent -
+    gc.collect()
+    work.mkdir(exist_ok=True)
+    front_start = time.perf_counter()
+    own.reset()
+    try:
+        front = front_door_phase(tempfile.mkdtemp(dir=work), card.name_power)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    front_secs = time.perf_counter() - front_start
+    if any(own.read().values()):
+        raise AssertionError(f"front door: this process launched kernels: {own.read()}")
+    fc = front["counters"]
+
     def origin_launches(name: str) -> dict:
         """Phase 13's launches of one wrapper, by leg."""
         return {leg: r["launches"].get(name, 0) for leg, r in origin_legs.items()
@@ -2911,6 +3335,9 @@ def main() -> int:
          "herd_launches": {"origin": hc["origin_launches"]["sha256_uniform"],
                            "agent": hc["agent_launches"]["sha256_uniform"]},
          "herd_origin_ingest_windows": hc["origin_ingest_windows"],
+         "front_door_launches": {"origin": fc["origin_launches"]["sha256_uniform"],
+                                 "agent": fc["agent_launches"]["sha256_uniform"]},
+         "front_door_origin_ingest_windows": fc["origin_ingest_windows"],
          **sha_entry(uni_main, ROWS_KERNEL)},
         {"name": "sha256_ragged", **common,
          "replaces": "kraken_tpu/ops/sha256.py:140",
@@ -2925,6 +3352,11 @@ def main() -> int:
          "herd_verify_batches": hc["agent_cuda_batches"],
          "herd_rows_per_batch": hc["agent_verified_pieces"] / hc["agent_cuda_batches"],
          "herd_origin_dedup_chunks": hc["origin_dedup_chunks"],
+         "front_door_launches": {"origin": fc["origin_launches"]["sha256_ragged"],
+                                 "agent": fc["agent_launches"]["sha256_ragged"]},
+         "front_door_verify_batches": fc["agent_cuda_batches"],
+         "front_door_rows_per_batch": fc["agent_verified_pieces"] / fc["agent_cuda_batches"],
+         "front_door_second_pull_launches": fc["second_pull_agent_launches"]["sha256_ragged"],
          **sha_entry(rag_main, ROWS_KERNEL)},
         {"name": "pack_tiles_device", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -2954,6 +3386,8 @@ def main() -> int:
          "origin_http_launches": origin_launches("gear_candidates"),
          "herd_launches": {"origin": hc["origin_launches"]["gear_candidates"],
                            "agent": hc["agent_launches"]["gear_candidates"]},
+         "front_door_launches": {"origin": fc["origin_launches"]["gear_candidates"],
+                                 "agent": fc["agent_launches"]["gear_candidates"]},
          "shape": "one 64 MiB window", "plain_shape": "one 64 MiB window"},
         # A diagnostic on no path of the system: the main path launches it
         # no time; each decomposition's own launches stand beside.
@@ -2968,7 +3402,7 @@ def main() -> int:
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
         "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
         "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,
-        "herd_seconds": herd_secs,
+        "herd_seconds": herd_secs, "front_door_seconds": front_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

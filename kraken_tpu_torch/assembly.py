@@ -1,9 +1,9 @@
 """Component assembly: wire stores, schedulers, and HTTP servers into
 runnable origin / tracker / agent nodes.
 
-The port's copy of the tracker, origin and agent paths of
-``kraken_tpu.assembly``: the CLI runs one node per process; tests run
-several per process. Config keys follow the component YAML shape
+The port's copy of ``kraken_tpu.assembly``'s five nodes (tracker, origin,
+agent with its docker-registry endpoint, build-index, proxy): the CLI runs
+one node per process; tests run several per process. Config keys follow the component YAML shape
 (``config/``). Where the port's nodes differ from the reference's:
 
 - ``hasher`` defaults to ``cuda`` (the reference's default is ``cpu``);
@@ -24,6 +24,10 @@ several per process. Config keys follow the component YAML shape
   are refused by ``SchedulerConfig`` (A7g).
 - Every app serves ``GET /metrics`` (``instrument_app``); the
   per-endpoint middleware waits for A7e.
+- The build-index and the proxy do no device work, in the reference
+  either: they load no kernel library and make no CUDA context. The
+  agent's registry endpoint stops before its scheduler, so no pull starts
+  on a scheduler that is stopping.
 """
 
 from __future__ import annotations
@@ -993,10 +997,127 @@ class OriginNode:
         await asyncio.to_thread(write_clean_shutdown, self.store)
 
 
+class BuildIndexNode:
+    """Build-index: tag server + durable replication."""
+
+    def __init__(
+        self,
+        store_root: str,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        backends: BackendManager | None = None,
+        remotes: list[str] | None = None,
+        origin_cluster: ClusterClient | None = None,
+        ssl_context=None,
+        immutable_tags: bool = False,
+        task_timeout_seconds: float = 1800.0,
+    ):
+        from kraken_tpu_torch.buildindex.server import TagServer
+        from kraken_tpu_torch.buildindex.tagstore import TagStore
+
+        self.host = host
+        self.port = port
+        self.retry = RetryManager(
+            TaskStore(f"{store_root}/retry.db"),
+            task_timeout_seconds=task_timeout_seconds,
+        )
+        self.store = TagStore(
+            f"{store_root}/tags", backends=backends, retry=self.retry
+        )
+        self.server = TagServer(
+            self.store,
+            retry=self.retry,
+            remotes=remotes,
+            origin_cluster=origin_cluster,
+            immutable=immutable_tags,
+        )
+        self.ssl_context = ssl_context
+        self._runner: Optional[http_lite.AppRunner] = None
+        self._refresh_task: Optional[asyncio.Task] = None
+
+    @property
+    def addr(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    async def start(self) -> None:
+        self._runner, self.port = await _serve(
+            self.server.make_app(), self.host, self.port, "build-index",
+            ssl_context=self.ssl_context,
+        )
+        self.retry.start()
+        self._refresh_task = asyncio.create_task(_ring_refresh_loop(
+            lambda: self.server.origin_cluster, 5.0
+        ))
+
+    async def stop(self) -> None:
+        if self._refresh_task:
+            self._refresh_task.cancel()
+        self.retry.stop()
+        if self._runner:
+            await self._runner.cleanup()
+        await self.retry.reap()
+        self.retry.close()
+
+
+class ProxyNode:
+    """Proxy: the docker-push registry frontend (write mode)."""
+
+    def __init__(
+        self,
+        origin_cluster: ClusterClient,
+        build_index_addr: str,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        ssl_context=None,
+        spool_root: str | None = None,
+    ):
+        from kraken_tpu_torch.buildindex.server import TagClient
+        from kraken_tpu_torch.dockerregistry.registry import RegistryServer
+        from kraken_tpu_torch.dockerregistry.transfer import ProxyTransferer
+
+        self.host = host
+        self.port = port
+        self.origin_cluster = origin_cluster
+        self._tag_client = TagClient(build_index_addr)
+        # A configured spool_root makes upload sessions durable across
+        # proxy restarts (a crashed mid-push resumes); without it both
+        # spools fall back to fresh temp dirs.
+        upload_dir = os.path.join(spool_root, "uploads") if spool_root else None
+        pass_dir = os.path.join(spool_root, "passthrough") if spool_root else None
+        self.server = RegistryServer(
+            ProxyTransferer(origin_cluster, self._tag_client,
+                            spool_dir=pass_dir),
+            read_only=False,
+            upload_dir=upload_dir,
+        )
+        self.ssl_context = ssl_context
+        self._runner: Optional[http_lite.AppRunner] = None
+        self._refresh_task: Optional[asyncio.Task] = None
+
+    @property
+    def addr(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    async def start(self) -> None:
+        self._runner, self.port = await _serve(
+            self.server.make_app(), self.host, self.port, "proxy",
+            ssl_context=self.ssl_context,
+        )
+        self._refresh_task = asyncio.create_task(_ring_refresh_loop(
+            lambda: self.origin_cluster, 5.0
+        ))
+
+    async def stop(self) -> None:
+        if self._refresh_task:
+            self._refresh_task.cancel()
+        if self._runner:
+            await self._runner.cleanup()
+        await self._tag_client.close()
+
+
 class AgentNode:
-    """Agent: download daemon + agentserver. The docker-registry read
-    endpoint (``registry_port``, ``build_index``) waits for ROADMAP A7d;
-    the CLI refuses it by name."""
+    """Agent: download daemon + agentserver (+ the docker-registry read
+    endpoint when a build-index address is configured)."""
 
     def __init__(
         self,
@@ -1005,12 +1126,15 @@ class AgentNode:
         host: str = "127.0.0.1",
         http_port: int = 0,
         p2p_port: int = 0,
+        registry_port: int = 0,
+        build_index_addr: str = "",
         hasher: str = "cuda",
         hash_workers: int = 1,
         cleanup: CleanupConfig | None = None,
         scheduler_config: SchedulerConfig | None = None,
         p2p_bandwidth: dict | None = None,
         ssl_context=None,
+        tag_cache_ttl: float = 0.0,
         durability: str = "rename",
         registry_strict_accept: bool = False,
         scrub: dict | ScrubConfig | None = None,
@@ -1035,9 +1159,15 @@ class AgentNode:
         # robustness knob only (resume gates whether fsck preserves
         # journaled upload state on the shared store layer).
         self.ingest_config = None if ingest is None else _config(IngestConfig, ingest)
-        # Stored for the registry endpoint (A7d), as the reference stores
-        # it when that endpoint is off.
+        self.registry_port = registry_port
+        # Manifest Accept negotiation: strict mode 406s clients pinned to
+        # types the registry does not hold; off by default, as in the
+        # reference (old docker clients regress under strict).
         self.registry_strict_accept = registry_strict_accept
+        self.build_index_addr = build_index_addr
+        # Positive-only tag cache TTL for the registry endpoint (0 = off;
+        # sound only with a build-index that declares immutable_tags).
+        self.tag_cache_ttl = tag_cache_ttl
         self.tracker_addr = tracker_addr
         self.store = CAStore(store_root, durability=durability)
         # Planes that wait (A7e, A7f): their sections load, and a value
@@ -1083,13 +1213,23 @@ class AgentNode:
         self.scheduler: Optional[Scheduler] = None
         self.server: Optional[AgentServer] = None
         self._runner: Optional[http_lite.AppRunner] = None
+        self._registry_runner: Optional[http_lite.AppRunner] = None
         self._tracker_client: Optional[TrackerClient] = None
+        self._tag_client = None
         self._cleanup_task: Optional[asyncio.Task] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
 
     @property
     def addr(self) -> str:
         return f"{self.host}:{self.http_port}"
+
+    @property
+    def registry_addr(self) -> str | None:
+        """Where the docker-registry read endpoint is served, or None when
+        it is off (no build-index address)."""
+        if self._registry_runner is None:
+            return None
+        return f"{self.host}:{self.registry_port}"
 
     def _after_evict(self, d: Digest) -> None:
         """Cleanup worker thread, post-delete: an evicted blob leaves the
@@ -1174,6 +1314,24 @@ class AgentNode:
                 on_corrupt=self._on_scrub_corrupt,
             )
             self.scrubber.start()
+        if self.build_index_addr:
+            from kraken_tpu_torch.buildindex.server import TagClient
+            from kraken_tpu_torch.dockerregistry.registry import RegistryServer
+            from kraken_tpu_torch.dockerregistry.transfer import ReadOnlyTransferer
+
+            self._tag_client = TagClient(self.build_index_addr)
+            registry = RegistryServer(
+                ReadOnlyTransferer(
+                    self.store, self.scheduler, self._tag_client,
+                    tag_cache_ttl=self.tag_cache_ttl,
+                ),
+                read_only=True,
+                strict_accept=self.registry_strict_accept,
+            )
+            self._registry_runner, self.registry_port = await _serve(
+                registry.make_app(), self.host, self.registry_port,
+                "agent-registry", ssl_context=self.ssl_context,
+            )
 
     def reload(self, cfg: dict) -> None:
         """Apply a re-read config's sections live (SIGHUP). Every section
@@ -1261,11 +1419,17 @@ class AgentNode:
             self.loop_monitor.stop()
         if self.scrubber:
             self.scrubber.stop()
+        # The registry endpoint before the scheduler: no pull starts on a
+        # scheduler that is stopping.
+        if self._registry_runner:
+            await self._registry_runner.cleanup()
         if self.scheduler:
             await self.scheduler.stop()
         if self._runner:
             await self._runner.cleanup()
         if self._tracker_client:
             await self._tracker_client.close()
+        if self._tag_client:
+            await self._tag_client.close()
         # LAST: bound the next boot's fsck crash-window verify.
         await asyncio.to_thread(write_clean_shutdown, self.store)

@@ -1,23 +1,30 @@
 """Component entry points: one long-running process per component.
 
-The port's copy of the ``tracker``, ``origin`` and ``agent`` subcommands of
-``kraken_tpu.cli``:
+The port's copy of the ``tracker``, ``origin``, ``agent``, ``build-index``
+and ``proxy`` subcommands of ``kraken_tpu.cli``:
 
-    python -m kraken_tpu_torch.cli tracker --config config/tracker/development.yaml
-    python -m kraken_tpu_torch.cli origin  --config config/origin/development.yaml --hasher cuda
-    python -m kraken_tpu_torch.cli agent   --config config/agent/development.yaml --hasher cuda
+    python -m kraken_tpu_torch.cli tracker     --config config/tracker/development.yaml
+    python -m kraken_tpu_torch.cli origin      --config config/origin/development.yaml --hasher cuda
+    python -m kraken_tpu_torch.cli agent       --config config/agent/development.yaml --hasher cuda \
+                                               --registry-port 0 --build-index host:7620
+    python -m kraken_tpu_torch.cli build-index --config config/build-index/base.yaml --store ./bi \
+                                               --origins host:7610
+    python -m kraken_tpu_torch.cli proxy       --config config/proxy/base.yaml \
+                                               --origins host:7610 --build-index host:7620
 
 Config YAML keys mirror the constructor arguments of the assembly nodes
 (:mod:`kraken_tpu_torch.assembly`); flags override config values. The
 YAML is read by the port's own reader (``utils/yaml_lite.py``). Each node
-prints one ``READY {json}`` line once it listens. SIGTERM drains and then
-stops, SIGINT stops, SIGHUP re-reads ``--config`` and applies what
-reloads live (a reload that raises keeps the current config).
+prints one ``READY {json}`` line once it listens (an agent with a registry
+endpoint adds its ``registry_addr``). SIGTERM drains and then stops,
+SIGINT stops, SIGHUP re-reads ``--config`` and applies what reloads live
+(a reload that raises keeps the current config).
 
 ``--hasher`` takes ``cpu`` and ``cuda`` (a ``cuda`` node without a card
 exits non-zero before its READY line); the shipped files' ``hasher: tpu``
-is refused unless a flag overrides it. A top-level key that no node of
-the component reads is logged, never dropped silently. The other
+is refused unless a flag overrides it. The build-index and the proxy hash
+nothing on a card, in the reference either. A top-level key that no node
+of the component reads is logged, never dropped silently. The other
 subcommands of the reference exit 2 with a message naming the ROADMAP
 item that ports them.
 """
@@ -36,8 +43,6 @@ from kraken_tpu_torch.configutil import load_config
 
 # The reference's other subcommands, and the ROADMAP item that ports each.
 NOT_PORTED = {
-    "build-index": "A7d",
-    "proxy": "A7d",
     "status": "A7e",
     "trace": "A7e",
     "flame": "A7e",
@@ -51,10 +56,16 @@ NOT_PORTED = {
 
 # Top-level keys each component reads (beside the flags). Keys in
 # IGNORED are read by no node of that component in the reference either
-# (the tracker holds no store: the shared base's cleanup: is not its).
-_COMMON_KEYS = {"host", "port", "failpoints", "tls", "tls_client", "rpc",
-                "trace", "profiling", "slo"}
+# (the tracker, the build-index and the proxy hold no CAStore: the shared
+# base's cleanup: is not theirs).
+_LISTENER_KEYS = {"host", "port", "failpoints", "tls", "tls_client", "rpc"}
+_COMMON_KEYS = _LISTENER_KEYS | {"trace", "profiling", "slo"}
 READS = {
+    "build-index": _LISTENER_KEYS | {
+        "store", "origins", "remotes", "backends", "immutable_tags",
+        "task_timeout_seconds", "max_replica",
+    },
+    "proxy": _LISTENER_KEYS | {"origins", "build_index", "spool", "max_replica"},
     "tracker": _COMMON_KEYS | {
         "origins", "announce_interval_seconds", "peer_ttl_seconds",
         "peerstore_redis", "fleet", "self_addr", "max_replica",
@@ -75,7 +86,8 @@ READS = {
         "tag_cache_ttl",
     },
 }
-IGNORED = {"tracker": {"cleanup"}, "origin": set(), "agent": set()}
+IGNORED = {"tracker": {"cleanup"}, "origin": set(), "agent": set(),
+           "build-index": {"cleanup"}, "proxy": {"cleanup"}}
 
 
 async def _run_until_signal(node, describe: dict,
@@ -111,6 +123,10 @@ async def _run_until_signal(node, describe: dict,
 
     await node.start()
     describe["addr"] = node.addr
+    # Agents with the docker-registry read endpoint enabled bind it on its
+    # own (possibly ephemeral) port; report it so harnesses can find it.
+    if getattr(node, "registry_addr", None):
+        describe["registry_addr"] = node.registry_addr
     # One machine-readable line so herd harnesses can scrape the bound ports.
     print("READY " + json.dumps(describe), flush=True)
     await stop.wait()
@@ -186,9 +202,10 @@ def main(argv: list[str] | None = None) -> None:
                          help="host piece-hash pool size for the verify"
                               " plane (cpu hasher); 0 = strictly serial")
     p_agent.add_argument("--registry-port", type=int, default=None,
-                         help="the docker-registry read API (ROADMAP A7d)")
+                         help="serve the docker-registry read API here"
+                              " (requires --build-index)")
     p_agent.add_argument("--build-index", default=None,
-                         help="build-index addr (ROADMAP A7d)")
+                         help="build-index addr for tag -> digest lookups")
     p_agent.add_argument("--scrub-bps", type=float, default=None,
                          help="background integrity-scrub read budget in"
                               " bytes/sec (overrides scrub.bytes_per_second;"
@@ -201,6 +218,26 @@ def main(argv: list[str] | None = None) -> None:
                          help="download-pump worker processes (overrides"
                               " scheduler.leech_workers); only 0 is taken"
                               " until ROADMAP A7g")
+
+    p_bi = sub.add_parser("build-index")
+    _common(p_bi)
+    p_bi.add_argument("--store", default=None)
+    p_bi.add_argument("--origins", default=None,
+                      help="comma-separated origin http addrs (tag"
+                           " dependency resolution)")
+    p_bi.add_argument("--remotes", default=None,
+                      help="comma-separated remote build-index addrs"
+                           " (cross-cluster tag replication)")
+
+    p_proxy = sub.add_parser("proxy")
+    _common(p_proxy)
+    p_proxy.add_argument("--origins", default=None,
+                         help="comma-separated origin http addrs")
+    p_proxy.add_argument("--build-index", default=None,
+                         help="build-index addr for tag puts")
+    p_proxy.add_argument("--spool", default=None,
+                         help="durable spool root: upload sessions survive"
+                              " proxy restarts (docker push resumes)")
 
     for name, item in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
@@ -215,7 +252,13 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
 
     # The heavy imports (torch, the nodes) wait until a node is asked for.
-    from kraken_tpu_torch.assembly import AgentNode, OriginNode, TrackerNode
+    from kraken_tpu_torch.assembly import (
+        AgentNode,
+        BuildIndexNode,
+        OriginNode,
+        ProxyNode,
+        TrackerNode,
+    )
     from kraken_tpu_torch.backend import Manager as BackendManager
     from kraken_tpu_torch.origin.client import ClusterClient
     from kraken_tpu_torch.p2p.scheduler import SchedulerConfig
@@ -455,13 +498,12 @@ def main(argv: list[str] | None = None) -> None:
         )
 
     elif args.component == "agent":
+        # None = not requested; 0 = requested on an ephemeral port.
         registry_port = pick(args.registry_port, "registry_port", None)
         build_index = pick(args.build_index, "build_index", "")
-        if registry_port is not None or build_index or cfg.get("tag_cache_ttl"):
-            parser.error(
-                "the agent's docker-registry endpoint (registry_port,"
-                " build_index, tag_cache_ttl) is not ported yet (ROADMAP A7d)"
-            )
+        if registry_port is not None and not build_index:
+            parser.error("--registry-port requires --build-index (tag"
+                         " lookups resolve through it)")
         try:
             node = AgentNode(
                 store_root=pick(args.store, "store", "./agent-store"),
@@ -469,6 +511,8 @@ def main(argv: list[str] | None = None) -> None:
                 host=host,
                 http_port=port,
                 p2p_port=pick(args.p2p_port, "p2p_port", 0),
+                registry_port=registry_port or 0,
+                build_index_addr=build_index,
                 hasher=hasher_of(),
                 hash_workers=int(pick(args.hash_workers, "hash_workers", 1)),
                 cleanup=cleanup,
@@ -478,6 +522,7 @@ def main(argv: list[str] | None = None) -> None:
                 ),
                 p2p_bandwidth=cfg.get("p2p_bandwidth"),
                 ssl_context=ssl_context,
+                tag_cache_ttl=float(cfg.get("tag_cache_ttl", 0.0)),
                 durability=cfg.get("durability", "rename"),
                 registry_strict_accept=bool(
                     cfg.get("registry_strict_accept", False)
@@ -501,6 +546,48 @@ def main(argv: list[str] | None = None) -> None:
         asyncio.run(
             _run_until_signal(node, {"component": "agent"}, args.config)
         )
+
+    elif args.component == "build-index":
+        backends_cfg = cfg.get("backends")
+        backends = BackendManager(backends_cfg) if backends_cfg else None
+        remotes = [
+            a for a in (pick(args.remotes, "remotes", "") or "").split(",") if a
+        ]
+        node = BuildIndexNode(
+            store_root=pick(args.store, "store", "./build-index-store"),
+            host=host,
+            port=port,
+            backends=backends,
+            remotes=remotes or None,
+            origin_cluster=origin_cluster(
+                pick(args.origins, "origins", ""), "build-index"
+            ),
+            ssl_context=ssl_context,
+            # YAML: immutable_tags: true -- a tag can never be re-pointed
+            # at a different digest (same-digest re-push stays idempotent).
+            immutable_tags=bool(cfg.get("immutable_tags", False)),
+            task_timeout_seconds=float(
+                cfg.get("task_timeout_seconds", 1800.0)
+            ),
+        )
+        asyncio.run(_run_until_signal(node, {"component": "build-index"}))
+
+    elif args.component == "proxy":
+        cluster = origin_cluster(pick(args.origins, "origins", ""), "proxy")
+        if cluster is None:
+            parser.error("proxy requires --origins")
+        build_index = pick(args.build_index, "build_index", "")
+        if not build_index:
+            parser.error("proxy requires --build-index")
+        node = ProxyNode(
+            cluster,
+            build_index,
+            host=host,
+            port=port,
+            ssl_context=ssl_context,
+            spool_root=pick(args.spool, "spool", None),
+        )
+        asyncio.run(_run_until_signal(node, {"component": "proxy"}))
 
 
 if __name__ == "__main__":

@@ -7,20 +7,27 @@ exists, so a ported module reads as its reference does:
 
 Server (``aiohttp.web``):
 
-- :class:`Application` with ``router.add_get/post/put/patch/delete/head``
-  (``add_get`` also answers HEAD), ``{name}`` path segments, a last
-  ``{name:.*}`` segment that takes the rest of the path, app keys
+- :class:`Application` with ``router.add_route/get/post/put/patch/delete/head``
+  (``add_get`` also answers HEAD, ``add_route("*", ...)`` any method), route
+  templates of ``{name}`` (``[^{}/]+``) and ``{name:regex}`` parts anywhere in
+  the path (a regex may span ``/``), resolved as ``aiohttp`` resolves them
+  (below), ``middlewares=[...]`` (each ``async def m(request, handler)``,
+  the first outermost; :func:`middleware` marks one), app keys
   (:class:`AppKey`, ``app[key] = value``), ``client_max_size`` and
   ``cleanup_ctx`` (async generators run up to their ``yield`` by
   :func:`serve` and finished, last first, by ``AppRunner.cleanup()``);
 - :class:`Request`: ``method``, ``path``, ``raw_path``, ``match_info``,
-  ``query``, ``headers``, ``remote``, ``transport``, ``app``, ``read()``, ``text()``,
+  ``query``, ``headers`` (``getall`` gives a repeated header's values),
+  ``remote``, ``transport``, ``app``, ``read()``, ``text()``,
   ``json()``, ``http_range`` (``aiohttp``'s single-range parser: a ``slice``,
   ``ValueError`` for a malformed or multi-range header) and the streaming
   ``content`` (``read``, ``readany``, ``iter_chunked``);
 - :class:`Response`, :class:`StreamResponse` (``prepare``, ``write``,
-  ``write_eof``, ``content_length``) and :func:`json_response`, with the
-  content types ``aiohttp`` sends;
+  ``write_eof``, ``content_length``, ``content_type``), :class:`FileResponse`
+  (200 or 206 for one byte range, 416 with ``bytes */size``, HEAD; the body
+  sent by ``loop.sendfile``, or 1 MiB ``pread`` calls on a thread where the
+  transport cannot) and :func:`json_response`, with the content types
+  ``aiohttp`` sends;
 - :class:`HTTPException` and its subclasses, each taking ``text=`` and
   ``headers=``; raising one from a handler answers with it;
 - :func:`serve` (``AppRunner`` + ``TCPSite`` with
@@ -32,38 +39,56 @@ Client (``aiohttp.ClientSession``): a pooled keep-alive
 :class:`ClientSession` whose ``request(method, url, data=, headers=,
 timeout=, allow_redirects=)`` is awaited or entered (``async with``) and
 gives a :class:`ClientResponse` (``status``, ``headers``, ``read()``,
-``text()``, ``json()``, ``content.iter_chunked(n)``); https through the
+``text()``, ``json()``, ``content.iter_chunked(n)``); ``headers`` may be a
+list of pairs, each sent as a header line of its own; https through the
 standard library's :mod:`ssl`; :class:`ClientTimeout`;
 :class:`ClientConnectionError`, :class:`ClientPayloadError` and
 ``asyncio.TimeoutError``. A pooled connection that the server closed is
 retried once on a fresh one for the idempotent methods, as ``aiohttp``
 does; a refused or reset connection raises at once.
 
-Matching: a route matches the RAW request path segment by segment; each
-``{name}`` segment is then percent-decoded, so ``%2F`` inside a segment
-reaches the handler as ``/`` and does not split the route (what
-``aiohttp`` gives through ``path_safe``); as there, a segment whose decoded
-value holds ``{`` or ``}`` matches no route.
+Matching, as ``aiohttp`` matches: a template compiles to one pattern
+(``{name}`` as ``[^{}/]+``, ``{name:regex}`` as the regex, the literal parts
+escaped), held whole against the request path with its escapes decoded but
+for ``%2F`` and ``%25`` (yarl's ``path_safe``); each captured value then has
+those two decoded, so ``%2F`` inside a ``{name}`` part reaches the handler
+as ``/`` and does not split the route, and a decoded ``{`` or ``}`` matches
+no ``{name}``. Routes are tried in ``aiohttp``'s order: by the request
+path's prefixes, longest first, against each route's literal prefix, and
+in registration order within one prefix. A path no route matches raises
+``HTTPNotFound``, one whose routes take other methods
+``HTTPMethodNotAllowed`` with their ``Allow``; both are raised inside the
+middleware chain, so a middleware can rewrite them.
 
 Left out, with what stands in their place (ROADMAP §C):
 
 - ``ClientConnectionError`` subclasses the builtin ``ConnectionError``
   (``aiohttp``'s does not);
-- no middlewares, ``FileResponse``, websockets, cookies, multipart,
-  compression, proxies or ``Expect: 100-continue``;
+- no websockets, cookies, multipart, compression, proxies or ``Expect:
+  100-continue``; ``FileResponse`` takes no conditional request
+  (``If-Match``, ``If-None-Match``, ``If-Modified-Since``,
+  ``If-Unmodified-Since``, ``If-Range``) and serves no precompressed
+  sibling;
 - ``Request.query`` is a plain ``dict`` of each name's first value (no
-  ``getall``), and a repeated header's values join with ``", "``;
-- a route's only pattern is a last ``{name:.*}`` segment.
+  ``getall``), and ``headers[name]`` joins a repeated header's values with
+  ``", "`` (``aiohttp`` gives the first; ``getall`` gives each).
 """
 
 from __future__ import annotations
 
 import asyncio
+import codecs
+import email.utils
+import functools
 import http
 import json as _json
 import logging
+import math
+import mimetypes
+import os
 import re
 import ssl as _ssl
+import stat as _stat
 import time
 from collections.abc import MutableMapping
 from dataclasses import dataclass
@@ -95,23 +120,30 @@ def _check_header(name: str, value: str) -> None:
 
 class Headers(MutableMapping):
     """Case-insensitive headers that keep each name as it was first set
-    (``dict(headers)`` gives the names as sent). A repeated header's values
-    join with ``", "``."""
+    (``dict(headers)`` gives the names as sent). ``add`` keeps a repeated
+    header's values apart: ``getall`` gives them in order, ``headers[name]``
+    joins them with ``", "``. Built from a list of pairs, each pair is
+    added."""
 
     def __init__(self, items=None):
-        self._d: dict[str, tuple[str, str]] = {}
-        if items:
-            for k, v in (items.items() if hasattr(items, "items") else items):
+        self._d: dict[str, tuple[str, list[str]]] = {}
+        if isinstance(items, Headers):
+            items = items.pairs()
+        elif items and hasattr(items, "items"):
+            for k, v in items.items():
                 self[k] = v
+            return
+        for k, v in items or ():
+            self.add(k, v)
 
     def __getitem__(self, name: str) -> str:
-        return self._d[name.lower()][1]
+        return ", ".join(self._d[name.lower()][1])
 
     def __setitem__(self, name: str, value) -> None:
         value = str(value)
         _check_header(name, value)
         old = self._d.get(name.lower())
-        self._d[name.lower()] = (old[0] if old else name, value)
+        self._d[name.lower()] = (old[0] if old else name, [value])
 
     def __delitem__(self, name: str) -> None:
         del self._d[name.lower()]
@@ -125,9 +157,28 @@ class Headers(MutableMapping):
     def __contains__(self, name) -> bool:
         return isinstance(name, str) and name.lower() in self._d
 
-    def add(self, name: str, value: str) -> None:
+    def add(self, name: str, value) -> None:
+        value = str(value)
+        _check_header(name, value)
         old = self._d.get(name.lower())
-        self[name] = f"{old[1]}, {value}" if old else value
+        if old is None:
+            self._d[name.lower()] = (name, [value])
+        else:
+            old[1].append(value)
+
+    def getall(self, name: str, *default) -> list[str]:
+        """Every value of ``name``, in the order received; ``default`` (or
+        ``KeyError``) when there is none, as ``aiohttp``'s ``getall``."""
+        got = self._d.get(name.lower())
+        if got is not None:
+            return list(got[1])
+        if default:
+            return default[0]
+        raise KeyError(name)
+
+    def pairs(self) -> list[tuple[str, str]]:
+        """(name, value) for each value: one header line each."""
+        return [(k, v) for k, vs in self._d.values() for v in vs]
 
     def __repr__(self) -> str:
         return f"Headers({dict(self.items())!r})"
@@ -300,63 +351,128 @@ class AppKey:
 Handler = Callable[["Request"], Awaitable["StreamResponse"]]
 
 
-class _Route:
-    def __init__(self, method: str, template: str, handler: Handler):
+_HEX = frozenset("0123456789abcdefABCDEF")
+# A template's {name} and {name:regex} parts (aiohttp's ROUTE_RE, DYN and
+# DYN_WITH_RE).
+_ROUTE_PART = re.compile(r"(\{[_a-zA-Z][^{}]*(?:\{[^{}]*\}[^{}]*)*\})")
+_DYN = re.compile(r"\{(?P<var>[_a-zA-Z][_a-zA-Z0-9]*)\}")
+_DYN_WITH_RE = re.compile(r"\{(?P<var>[_a-zA-Z][_a-zA-Z0-9]*):(?P<re>.+)\}")
+_GOOD = r"[^{}/]+"
+METH_ANY = "*"
+
+
+def _path_safe(raw: str) -> str:
+    """The raw request path as ``aiohttp`` matches routes against it
+    (yarl's ``URL.path_safe``): each run of escapes decoded as UTF-8, an
+    escape that is not UTF-8 kept as sent, a decoded ``/`` or ``%`` kept
+    escaped as ``%2F`` or ``%25``."""
+    if "%" not in raw:
+        return raw
+    decoder = codecs.getincrementaldecoder("utf-8")()
+    out: list[str] = []
+    i, n = 0, len(raw)
+    while i < n:
+        ch = raw[i]
+        i += 1
+        if ch == "%" and i <= n - 2 and raw[i] in _HEX and raw[i + 1] in _HEX:
+            b = bytes([int(raw[i:i + 2], 16)])
+            i += 2
+            try:
+                got = decoder.decode(b)
+            except UnicodeDecodeError:
+                out.append(raw[i - 3 - len(decoder.buffer) * 3:i - 3])
+                decoder.reset()
+                try:
+                    got = decoder.decode(b)
+                except UnicodeDecodeError:
+                    out.append(raw[i - 3:i])
+                    continue
+            if got == "/":
+                out.append("%2F")
+            elif got == "%":
+                out.append("%25")
+            else:
+                out.append(got)
+            continue
+        if decoder.buffer:
+            out.append(raw[i - 1 - len(decoder.buffer) * 3:i - 1])
+            decoder.reset()
+        out.append(ch)
+    if decoder.buffer:
+        out.append(raw[-len(decoder.buffer) * 3:])
+    return "".join(out)
+
+
+def _unquote_safe(value: str) -> str:
+    return value.replace("%2F", "/").replace("%25", "%") if "%" in value else value
+
+
+class _Resource:
+    """One path template and the handlers of its methods (``aiohttp``'s
+    ``PlainResource`` and ``DynamicResource``)."""
+
+    def __init__(self, template: str):
         if not template.startswith("/"):
             raise ValueError(f"route {template!r} must start with /")
-        self.method = method
-        self.handler = handler
-        self.parts = []  # (is_var, literal or name)
-        self.tail = False  # the last part is {name:.*}: the rest of the path
-        segs = template.split("/")[1:]
-        for i, seg in enumerate(segs):
-            if seg.startswith("{") and seg.endswith(":.*}") and len(seg) > 5:
-                if i != len(segs) - 1:
-                    raise ValueError(f"route {template!r}: {{name:.*}} must be the last segment")
-                self.parts.append((True, seg[1:-4]))
-                self.tail = True
-            elif seg.startswith("{") and seg.endswith("}") and len(seg) > 2:
-                if ":" in seg:
-                    raise ValueError(f"route {template!r}: the only pattern is a last "
-                                     "{name:.*}")
-                self.parts.append((True, seg[1:-1]))
-            elif "{" in seg or "}" in seg:
-                raise ValueError(f"route {template!r}: a variable must be a whole segment")
-            else:
-                self.parts.append((False, seg))
+        self.template = template
+        self.routes: dict[str, Handler] = {}
+        pattern, canonical, dynamic = "", "", False
+        for part in _ROUTE_PART.split(template):
+            m = _DYN.fullmatch(part)
+            if m:
+                pattern += f"(?P<{m['var']}>{_GOOD})"
+                canonical += "{" + m["var"] + "}"
+                dynamic = True
+                continue
+            m = _DYN_WITH_RE.fullmatch(part)
+            if m:
+                pattern += f"(?P<{m['var']}>{m['re']})"
+                canonical += "{" + m["var"] + "}"
+                dynamic = True
+                continue
+            if "{" in part or "}" in part:
+                raise ValueError(f"invalid route {template!r} at {part!r}")
+            pattern += re.escape(part)
+            canonical += part
+        try:
+            self._pattern = re.compile(pattern) if dynamic else None
+        except re.error as e:
+            raise ValueError(f"route {template!r}: bad pattern {pattern!r}: {e}") from None
+        # aiohttp's index key: the literal prefix up to the last / before
+        # the first variable.
+        key = canonical.partition("{")[0].rpartition("/")[0] if dynamic else canonical
+        self.key = key.rstrip("/") or "/"
 
-    def match(self, raw_segments: list[str]) -> dict[str, str] | None:
-        if self.tail and len(raw_segments) >= len(self.parts):
-            n = len(self.parts) - 1
-            info = self._match(raw_segments[:n], self.parts[:n])
-            if info is not None:
-                info[self.parts[-1][1]] = unquote("/".join(raw_segments[n:]))
-            return info
-        if len(raw_segments) != len(self.parts):
+    def add(self, method: str, handler: Handler) -> None:
+        if method in self.routes or METH_ANY in self.routes:
+            raise RuntimeError(f"route {method} {self.template} will never be executed: "
+                               "its method is already registered")
+        self.routes[method] = handler
+
+    def match(self, path: str) -> dict[str, str] | None:
+        if self._pattern is None:
+            return {} if path == self.template else None
+        m = self._pattern.fullmatch(path)
+        if m is None:
             return None
-        return self._match(raw_segments, self.parts)
-
-    @staticmethod
-    def _match(raw_segments: list[str], parts) -> dict[str, str] | None:
-        info = {}
-        for (is_var, name), raw in zip(parts, raw_segments):
-            value = unquote(raw)
-            if is_var:
-                # aiohttp's segment pattern, [^{}/]+, over the decoded path.
-                if not raw or "{" in value or "}" in value:
-                    return None
-                info[name] = value
-            elif value != name:
-                return None
-        return info
+        return {k: _unquote_safe(v) for k, v in m.groupdict().items()}
 
 
 class Router:
     def __init__(self):
-        self._routes: list[_Route] = []
+        self._resources: list[_Resource] = []
+        self._index: dict[str, list[_Resource]] = {}
 
     def add_route(self, method: str, path: str, handler: Handler) -> None:
-        self._routes.append(_Route(method.upper(), path, handler))
+        """``method`` ``"*"`` takes any method. Consecutive routes of one
+        template share a resource, as in ``aiohttp``."""
+        if self._resources and self._resources[-1].template == path:
+            resource = self._resources[-1]
+        else:
+            resource = _Resource(path)
+            self._resources.append(resource)
+            self._index.setdefault(resource.key, []).append(resource)
+        resource.add(method.upper(), handler)
 
     def add_get(self, path: str, handler: Handler, *, allow_head: bool = True) -> None:
         self.add_route("GET", path, handler)
@@ -379,32 +495,70 @@ class Router:
         self.add_route("DELETE", path, handler)
 
     def resolve(self, method: str, raw_path: str) -> tuple[Handler, dict[str, str]]:
-        segments = raw_path.split("/")[1:]
-        allowed = set()
-        for route in self._routes:
-            info = route.match(segments)
-            if info is None:
-                continue
-            if route.method == method:
-                return route.handler, info
-            allowed.add(route.method)
+        """The handler and ``match_info`` for a request, tried in
+        ``aiohttp``'s order; ``HTTPMethodNotAllowed`` (with ``Allow``) or
+        ``HTTPNotFound`` when none takes it."""
+        path = _path_safe(raw_path)
+        allowed: set[str] = set()
+        part = path
+        while part:
+            for resource in self._index.get(part, ()):
+                info = resource.match(path)
+                if info is None:
+                    continue
+                handler = resource.routes.get(method, resource.routes.get(METH_ANY))
+                if handler is not None:
+                    return handler, info
+                allowed |= set(resource.routes)
+            if part == "/":
+                break
+            part = part.rpartition("/")[0] or "/"
         if allowed:
             raise HTTPMethodNotAllowed(method, allowed)
         raise HTTPNotFound()
 
 
+Middleware = Callable[["Request", Handler], Awaitable["StreamResponse"]]
+
+
+def middleware(f: Middleware) -> Middleware:
+    """Marks ``async def f(request, handler)`` as a middleware, as
+    ``aiohttp.web.middleware`` does; it changes nothing else."""
+    f.__middleware_version__ = 1
+    return f
+
+
 class Application(MutableMapping):
     """Routes and app-wide state. ``client_max_size`` caps what
     :meth:`Request.read` takes (413 at or above it), as in ``aiohttp``.
-    ``cleanup_ctx`` holds ``async def ctx(app)`` generators that yield
-    once: :func:`serve` runs each to its ``yield`` before it listens, and
-    ``AppRunner.cleanup()`` finishes them, last first."""
+    ``middlewares`` wrap every request's handler, the first outermost, the
+    router's own errors included. ``cleanup_ctx`` holds ``async def
+    ctx(app)`` generators that yield once: :func:`serve` runs each to its
+    ``yield`` before it listens, and ``AppRunner.cleanup()`` finishes
+    them, last first."""
 
-    def __init__(self, *, client_max_size: int = 1024 ** 2):
+    def __init__(self, *, client_max_size: int = 1024 ** 2,
+                 middlewares: list[Middleware] | tuple = ()):
         self.router = Router()
         self.client_max_size = client_max_size
+        self.middlewares: list[Middleware] = list(middlewares)
         self.cleanup_ctx: list[Callable[["Application"], AsyncIterator[None]]] = []
         self._state: dict = {}
+
+    def _handler(self, request: "Request") -> Handler:
+        """The request's handler wrapped in the middlewares; a router
+        error becomes a handler that raises it, so the chain sees it."""
+        try:
+            handler, request.match_info = self.router.resolve(request.method,
+                                                              request.raw_path)
+        except HTTPException as e:
+            error = e
+
+            async def handler(_request):
+                raise error
+        for m in reversed(self.middlewares):
+            handler = functools.partial(m, handler=handler)
+        return handler
 
     def __getitem__(self, key):
         return self._state[key]
@@ -516,6 +670,23 @@ class StreamResponse:
             self.headers["Content-Length"] = str(int(n))
 
     @property
+    def content_type(self) -> str:
+        """The media type of ``Content-Type`` (``application/octet-stream``
+        without one), lower case, parameters dropped, as ``aiohttp``."""
+        raw = self.headers.get("Content-Type")
+        if raw is None:
+            return "application/octet-stream"
+        return raw.split(";", 1)[0].strip().lower()
+
+    @content_type.setter
+    def content_type(self, value: str) -> None:
+        self.headers["Content-Type"] = value
+
+    def set_status(self, status: int, reason: str | None = None) -> None:
+        self.status = status
+        self.reason = reason or _reason(status)
+
+    @property
     def prepared(self) -> bool:
         return self._conn is not None
 
@@ -595,6 +766,111 @@ def json_response(data: Any = None, *, text: str | None = None, body: bytes | No
         text = dumps(data)
     return Response(text=text, body=body, status=status, reason=reason, headers=headers,
                     content_type=content_type)
+
+
+SENDFILE = True  # False: every FileResponse body goes by pread on a thread
+FILE_CHUNK = 1 << 20
+
+
+class FileResponse(StreamResponse):
+    """A file's bytes, as ``aiohttp.web.FileResponse`` answers: 200, or 206
+    with ``Content-Range`` for one byte range (a suffix, an end past the
+    last byte clamped to it), 416 with ``Content-Range: bytes */size`` for
+    a range that starts past the end or does not parse; ``Content-Length``,
+    ``Accept-Ranges``, ``ETag`` and ``Last-Modified``; ``Content-Type``
+    guessed from the name unless given; 404 for a missing file, 403 for one
+    that is not regular. The body goes by ``loop.sendfile``, or 1 MiB
+    ``pread`` calls on a thread where the transport cannot (TLS), never
+    read on the loop."""
+
+    def __init__(self, path, status: int = 200, reason: str | None = None, headers=None):
+        super().__init__(status=status, reason=reason, headers=headers)
+        self._path = os.fspath(path)
+
+    def _open(self):
+        st = os.stat(self._path)
+        if not _stat.S_ISREG(st.st_mode):
+            return None, st
+        f = open(self._path, "rb")
+        try:
+            return f, os.fstat(f.fileno())
+        except OSError:
+            return f, st
+
+    async def prepare(self, request: Request) -> None:
+        if self.prepared:
+            return
+        try:
+            f, st = await asyncio.to_thread(self._open)
+        except PermissionError:
+            return await self._answer(request, 403)
+        except OSError:
+            return await self._answer(request, 404)
+        if f is None:
+            return await self._answer(request, 403)
+        try:
+            await self._prepare_open(request, f, st)
+        finally:
+            await asyncio.to_thread(f.close)
+
+    async def _answer(self, request: Request, status: int, size: int | None = None) -> None:
+        """An answer with no body; ``size`` for a 416's ``Content-Range``."""
+        if size is not None:
+            self.headers["Content-Range"] = f"bytes */{size}"
+        self.set_status(status)
+        if request.method != "HEAD":
+            self.headers.setdefault("Content-Type", "application/octet-stream")
+        await super().prepare(request)
+
+    async def _prepare_open(self, request: Request, f, st: os.stat_result) -> None:
+        size, start, count = st.st_size, 0, st.st_size
+        try:
+            rng = request.http_range
+        except ValueError:
+            return await self._answer(request, 416, size)
+        if rng.start is not None:
+            start, end = rng.start, rng.stop
+            if start < 0 and end is None:  # the last -start bytes
+                start = max(0, start + size)
+                count = size - start
+            else:
+                count = min(end if end is not None else size, size) - start
+            if start >= size:
+                return await self._answer(request, 416, size)
+            self.set_status(206)
+        if "Content-Type" not in self.headers:
+            self.content_type = (mimetypes.guess_type(self._path)[0]
+                                 or "application/octet-stream")
+        self.headers["ETag"] = f'"{st.st_mtime_ns:x}-{st.st_size:x}"'
+        # aiohttp rounds the time up to the whole second.
+        self.headers["Last-Modified"] = email.utils.formatdate(math.ceil(st.st_mtime),
+                                                               usegmt=True)
+        self.content_length = count
+        self.headers["Accept-Ranges"] = "bytes"
+        if self.status == 206:
+            self.headers["Content-Range"] = f"bytes {start}-{start + count - 1}/{size}"
+        await super().prepare(request)
+        if count == 0 or self._head_only or self._no_body():
+            return
+        await self._send_body(f, start, count)
+
+    async def _send_body(self, f, offset: int, count: int) -> None:
+        transport = self._conn.transport
+        # asyncio's native sendfile takes a plain socket transport; its
+        # fallback for the others (TLS) reads 16 KiB at a time.
+        mode = getattr(transport, "_sendfile_compatible", None)
+        if SENDFILE and getattr(mode, "name", "") == "TRY_NATIVE":
+            if self._conn._lost or transport.is_closing():
+                raise ConnectionResetError("connection lost")
+            await asyncio.get_running_loop().sendfile(transport, f, offset, count)
+            return
+        fd, end = f.fileno(), offset + count
+        while offset < end:
+            chunk = await asyncio.to_thread(os.pread, fd, min(FILE_CHUNK, end - offset), offset)
+            if not chunk:
+                raise ConnectionResetError(f"{self._path} shrank under its response")
+            offset += len(chunk)
+            await self.write(chunk)
 
 
 class HTTPException(Response, Exception):
@@ -756,20 +1032,22 @@ class _ServerConn(asyncio.Protocol):
         elif request is not None and request.version == "HTTP/1.0":
             resp.headers["Connection"] = "keep-alive"
         lines = [f"HTTP/1.1 {resp.status} {resp.reason}"]
-        lines += [f"{k}: {v}" for k, v in resp.headers.items()]
+        lines += [f"{k}: {v}" for k, v in resp.headers.pairs()]
         await self.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
 
     async def _send(self, resp: StreamResponse, request: Request | None) -> None:
+        if not resp.prepared and not isinstance(resp, Response) and request is not None:
+            await resp.prepare(request)  # a FileResponse, or a handler's unprepared stream
         if resp.prepared:
             await resp.write_eof()
             return
-        if not isinstance(resp, Response):
-            raise RuntimeError("a StreamResponse must be prepared by its handler")
         body = resp.body or b""
         if resp._no_body():
             body = b""
             resp.headers.pop("Content-Length", None)
-        else:
+        elif not (body == b"" and request is not None and request.method == "HEAD"
+                  and "Content-Length" in resp.headers):
+            # A HEAD answer keeps the length its handler stated, as aiohttp.
             resp.content_length = len(body)
         await self.send_head(resp, request)
         if body and (request is None or request.method != "HEAD"):
@@ -834,9 +1112,7 @@ class _ServerConn(asyncio.Protocol):
         try:
             if not request.raw_path.startswith("/"):
                 raise HTTPBadRequest(text="request target must be a path")
-            handler, request.match_info = self._app.router.resolve(
-                request.method, request.raw_path)
-            resp = await handler(request)
+            resp = await self._app._handler(request)(request)
             if not isinstance(resp, StreamResponse):
                 raise RuntimeError(f"handler returned {type(resp).__name__}, not a response")
             return resp
@@ -1232,7 +1508,7 @@ class ClientSession:
         raise TypeError(f"unsupported request body {type(data).__name__}")
 
     async def _exchange(self, conn: _ClientConn, method, target, hdrs, body, chunks):
-        head = [f"{method} {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in hdrs.items()]
+        head = [f"{method} {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in hdrs.pairs()]
         w = conn.writer
         w.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + body)
         await w.drain()

@@ -25,7 +25,8 @@ from test_torch_profiler import process_globals  # noqa: F401 (a fixture)
 REPO = Path(__file__).resolve().parent.parent
 CONFIG = REPO / "config"
 ALL_FILES = sorted(str(p.relative_to(CONFIG)) for p in CONFIG.rglob("*.yaml"))
-COMPONENT_FILES = [f for f in ALL_FILES if f.split("/")[0] in ("agent", "origin", "tracker")]
+COMPONENT_FILES = [f for f in ALL_FILES if f.split("/")[0] in (
+    "agent", "origin", "tracker", "build-index", "proxy")]
 
 
 @pytest.fixture(autouse=True)
@@ -42,7 +43,10 @@ def _keep_logging():
 
 
 def test_the_tree_has_nine_files_six_of_them_the_ported_components():
-    assert len(ALL_FILES) == 9 and len(COMPONENT_FILES) == 6
+    # Since the front door was ported, all eight component files are: the
+    # ninth is the shared base.
+    assert len(ALL_FILES) == 9 and len(COMPONENT_FILES) == 8
+    assert sorted(set(ALL_FILES) - set(COMPONENT_FILES)) == ["base.yaml"]
 
 
 def same(a, b) -> bool:
@@ -275,9 +279,11 @@ def test_every_top_level_key_is_read_by_the_ports_cli(name):
     cfg = configutil.load_config(str(CONFIG / name))
     unread = set(cfg) - cli.READS[component] - cli.IGNORED[component]
     assert unread == set()
-    # The tracker holds no store; the shared base's cleanup: is its only
-    # key no node reads, as in the reference.
-    assert cli.IGNORED == {"tracker": {"cleanup"}, "origin": set(), "agent": set()}
+    # The tracker, the build-index and the proxy hold no CAStore; the
+    # shared base's cleanup: is their only key no node reads, as in the
+    # reference.
+    assert cli.IGNORED == {"tracker": {"cleanup"}, "origin": set(), "agent": set(),
+                           "build-index": {"cleanup"}, "proxy": {"cleanup"}}
 
 
 def test_an_unread_key_is_logged_never_dropped_silently(caplog):
@@ -410,11 +416,30 @@ def test_the_other_subcommands_exit_2_naming_their_item(capsys, name, item):
     assert item in capsys.readouterr().err
 
 
-def test_the_registry_endpoint_is_refused_naming_a7d(capsys, tmp_path):
+def test_a_registry_port_needs_a_build_index(capsys, tmp_path):
+    """The reference's rule: the agent's registry endpoint resolves tags
+    through a build-index, so a registry port without one exits 2."""
     with pytest.raises(SystemExit) as ei:
         cli.main(["agent", "--hasher", "cpu", "--store", str(tmp_path / "a"),
-                  "--registry-port", "0", "--build-index", "b:1"])
-    assert ei.value.code == 2 and "A7d" in capsys.readouterr().err
+                  "--registry-port", "0"])
+    assert ei.value.code == 2 and "--build-index" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args,needs", [
+    (["proxy", "--build-index", "b:1"], "--origins"),
+    (["proxy", "--origins", "o:1"], "--build-index"),
+])
+def test_the_proxy_needs_its_origins_and_build_index(capsys, args, needs):
+    with pytest.raises(SystemExit) as ei:
+        cli.main([*args, "--config", str(CONFIG / "proxy/base.yaml")])
+    assert ei.value.code == 2 and needs in capsys.readouterr().err
+
+
+def test_the_agent_stores_the_registry_settings(tmp_path):
+    n = _agent(tmp_path, registry_port=0, build_index_addr="b:1", tag_cache_ttl=30.0,
+               registry_strict_accept=True)
+    assert (n.registry_port, n.build_index_addr, n.tag_cache_ttl,
+            n.registry_strict_accept, n.registry_addr) == (0, "b:1", 30.0, True, None)
 
 
 def test_failpoints_in_yaml_need_the_acknowledgement(capsys, monkeypatch, tmp_path):

@@ -8,12 +8,14 @@ stated mapping."""
 
 import asyncio
 import hashlib
+import json
 import os
 import socket
 import time
 from urllib.parse import quote
 
 import aiohttp
+import multidict
 import numpy as np
 import pytest
 from aiohttp import web
@@ -424,19 +426,27 @@ def test_deliberate_differences_from_aiohttp():
     # The connection error is a builtin ConnectionError; aiohttp's is not.
     assert issubclass(http_lite.ClientConnectionError, ConnectionError)
     assert not issubclass(aiohttp.ClientConnectionError, ConnectionError)
-    # No middlewares.
-    with pytest.raises(TypeError):
-        http_lite.Application(middlewares=[])
-    # The only route pattern is a last {name:.*} segment.
-    with pytest.raises(ValueError):
-        http_lite.Application().router.add_get(r"/x/{n:\d+}", None)
-    with pytest.raises(ValueError):
-        http_lite.Application().router.add_get("/x/{n:.*}/y", None)
-    # A repeated header's values join; the query keeps each name's first value.
+    # Lifted: middlewares, and {name:regex} parts anywhere in a template,
+    # are taken as aiohttp takes them (their answers: the tests below).
+    async def handler(req):
+        return web.Response()
+
+    for w in (http_lite, web):
+        app = w.Application(middlewares=[])
+        assert list(app.middlewares) == []
+        app.router.add_get(r"/x/{n:\d+}", handler)
+        app.router.add_get("/x/{n:.*}/y", handler)
+        with pytest.raises(ValueError):
+            w.Application().router.add_get("/x/{n:(}", handler)
+    # A repeated header's values join under [name]; getall gives each, as
+    # aiohttp's getall does. The query keeps each name's first value.
     h = http_lite.Headers()
     h.add("X-A", "1")
     h.add("x-a", "2")
     assert dict(h) == {"X-A": "1, 2"}
+    ref = multidict.CIMultiDict([("X-A", "1"), ("x-a", "2")])
+    assert h.getall("x-a") == ref.getall("x-a") == ["1", "2"]
+    assert h.getall("nope", []) == ref.getall("nope", []) == []
 
     async def query(req):
         return http_lite.json_response(req.query)
@@ -455,6 +465,40 @@ def test_deliberate_differences_from_aiohttp():
     assert asyncio.run(main()) == {"a": "1", "b": ""}
     with pytest.raises(ValueError):
         http_lite.Headers({"X-Bad": "a\r\nInjected: 1"})
+
+
+def test_file_response_takes_no_conditional_request(tmp_path):
+    """A deliberate difference: the port's ``FileResponse`` ignores
+    ``If-None-Match`` (aiohttp answers 304 to its own ETag), and its
+    ``match_info`` is a plain ``dict``."""
+    (tmp_path / "f").write_bytes(b"abc")
+
+    async def main():
+        out = {}
+        for kind in ("port", "aiohttp"):
+            w = WEB[kind]
+
+            async def serve_file(req):
+                out.setdefault("info", {})[kind] = type(req.match_info) is dict
+                return w.FileResponse(tmp_path / req.match_info["name"])
+
+            app = w.Application()
+            app.router.add_get("/{name}", serve_file)
+            port, stop = await start(kind, app)
+            try:
+                async with aiohttp.ClientSession() as s:
+                    async with s.get(f"http://127.0.0.1:{port}/f") as r:
+                        etag = r.headers["ETag"]
+                    async with s.get(f"http://127.0.0.1:{port}/f",
+                                     headers={"If-None-Match": etag}) as r:
+                        out[kind] = (r.status, await r.read())
+            finally:
+                await stop()
+        return out
+
+    out = asyncio.run(main())
+    assert out["port"] == (200, b"abc") and out["aiohttp"] == (304, b"")
+    assert out["info"] == {"port": True, "aiohttp": False}
 
 
 def test_cleanup_closes_the_listener_and_every_open_connection():
@@ -607,6 +651,330 @@ def test_a_last_dot_star_segment_takes_the_rest_of_the_path(kind):
 
     assert asyncio.run(main()) == {"/files/a/b/c": "a/b/c", "/files/": "", "/files/x%2Fy": "x/y",
                                    "/files": 404, "/other/a": 404}
+
+
+# -- getall, regex routes, middlewares and FileResponse (the front door) -------
+
+
+@pytest.mark.parametrize("server,client", PAIRS, ids=PAIR_IDS)
+def test_getall_gives_each_value_of_a_repeated_header(server, client):
+    """Docker sends its Accept types as separate header lines; each
+    client sends a list of pairs as such, and each server's ``getall``
+    gives every value in order."""
+    w = WEB[server]
+
+    async def accept(req):
+        return w.json_response({"all": req.headers.getall("Accept", []),
+                                "none": req.headers.getall("X-None", [])})
+
+    async def main():
+        app = w.Application()
+        app.router.add_get("/accept", accept)
+        port, stop = await start(server, app)
+        session = CLIENT[client].ClientSession()
+        try:
+            hdrs = [("Accept", "application/a"), ("Accept", "application/b;q=0.9"),
+                    ("Accept", "*/*")]
+            async with session.request("GET", f"http://127.0.0.1:{port}/accept",
+                                       headers=hdrs) as r:
+                return await r.json()
+        finally:
+            await session.close()
+            await stop()
+
+    assert asyncio.run(main()) == {
+        "all": ["application/a", "application/b;q=0.9", "*/*"], "none": []}
+
+
+# The front door's route tables, registered alike on both servers; each
+# handler answers its route's name and match_info.
+ROUTE_TABLE = [
+    ("GET", "/v2/"), ("GET", "/v2/_catalog"),
+    ("*", "/v2/{repo:.+}/manifests/{ref}"),
+    ("POST", "/v2/{repo:.+}/blobs/uploads/"),
+    ("GET", "/v2/{repo:.+}/blobs/uploads/{uid}"),
+    ("PATCH", "/v2/{repo:.+}/blobs/uploads/{uid}"),
+    ("PUT", "/v2/{repo:.+}/blobs/uploads/{uid}"),
+    ("*", "/v2/{repo:.+}/blobs/{digest}"),
+    ("GET", "/v2/{repo:.+}/tags/list"),
+    ("PUT", "/tags/{tag}/digest/{d}/replicate"), ("PUT", "/tags/{tag}/digest/{d}"),
+    ("GET", "/tags/{tag}"), ("GET", "/repositories/{repo}/tags"),
+    ("GET", "/files/{name:.*}"), ("DELETE", r"/n/{a:\d+}/{b}"),
+]
+
+
+def _route_app(w):
+    app = w.Application()
+    for i, (method, template) in enumerate(ROUTE_TABLE):
+        async def handler(req, i=i):
+            return w.json_response({"route": i, "info": dict(req.match_info)})
+
+        if method == "GET":
+            app.router.add_get(template, handler)
+        else:
+            app.router.add_route(method, template, handler)
+    return app
+
+
+@pytest.fixture(scope="module")
+def route_servers():
+    """Both servers with ``ROUTE_TABLE``, on a loop of their own in a
+    thread, so hypothesis can send them each example."""
+    import threading
+
+    loop = asyncio.new_event_loop()
+    ports, stops = {}, []
+    ready = threading.Event()
+
+    async def up():
+        for kind in ("port", "aiohttp"):
+            port, stop = await start(kind, _route_app(WEB[kind]))
+            ports[kind] = port
+            stops.append(stop)
+        ready.set()
+
+    thread = threading.Thread(target=lambda: (loop.run_until_complete(up()),
+                                              loop.run_forever()), daemon=True)
+    thread.start()
+    assert ready.wait(30)
+    yield ports
+    for stop in stops:
+        asyncio.run_coroutine_threadsafe(stop(), loop).result(30)
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(30)
+
+
+def raw_request(port: int, method: str, target: str, headers: str = "") -> tuple:
+    """One request with the target sent exactly as given: (status, headers
+    lowercased, body)."""
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as sock:
+        sock.sendall(f"{method} {target} HTTP/1.1\r\nHost: x\r\n{headers}"
+                     "Connection: close\r\nContent-Length: 0\r\n\r\n".encode("latin-1"))
+        data = b""
+        while chunk := sock.recv(65536):
+            data += chunk
+    head, _, body = data.partition(b"\r\n\r\n")
+    lines = head.decode("latin-1").split("\r\n")
+    hdrs = {}
+    for line in lines[1:]:
+        k, _, v = line.partition(":")
+        hdrs[k.strip().lower()] = v.strip()
+    if hdrs.get("transfer-encoding") == "chunked":
+        out = b""
+        while body:
+            size, _, rest = body.partition(b"\r\n")
+            n = int(size, 16)
+            if n == 0:
+                break
+            out, body = out + rest[:n], rest[n + 2:]
+        body = out
+    return int(lines[0].split(" ")[1]), hdrs, body
+
+
+def _routed(port: int, method: str, target: str):
+    status, hdrs, body = raw_request(port, method, target)
+    if status == 200 and method != "HEAD":
+        return status, json.loads(body)
+    return status, hdrs.get("allow"), hdrs.get("content-length")
+
+
+ROUTE_TARGETS = [
+    "/v2/", "/v2", "/v2/_catalog", "/v2/library/app/manifests/v1",
+    "/v2/library/app/blobs/uploads/", "/v2/library/app/blobs/uploads/abc",
+    "/v2/a/b/c/blobs/sha256:00", "/v2/library/app/tags/list", "/v2/x%2Fy/blobs/z",
+    "/v2/library%2Fapp/manifests/v1%3Ax", "/tags/library%2Fapp%3Av1",
+    "/tags/library%2Fapp%3Av1/digest/abc", "/tags/a%252Fb/digest/abc/replicate",
+    "/tags/a/b", "/tags/%7Bx%7D", "/repositories/library%2Fapp/tags", "/files/a/b%2Fc/",
+    "/files", "/n/12/x", "/n/1x/x", "/v2/%e2%82%ac/blobs/%ff", "/v2/a+b/manifests/%2B",
+    "/v2/a/blobs/uploads", "/v2//manifests/x", "/nope",
+]
+
+
+@pytest.mark.parametrize("method", ["GET", "HEAD", "PUT", "POST", "PATCH", "DELETE"])
+def test_routes_resolve_as_aiohttps_router_on_the_front_doors_tables(route_servers, method):
+    """The same raw targets on both servers: the same route, the same
+    decoded ``match_info``, or the same 404 / 405 and ``Allow``."""
+    for target in ROUTE_TARGETS:
+        got = {k: _routed(p, method, target) for k, p in route_servers.items()}
+        assert got["port"] == got["aiohttp"], (method, target, got)
+
+
+_SEGMENT = st.lists(st.sampled_from(list("abAB09._-:+~@!$&'()*,;=") + [
+    "%2F", "%2f", "%25", "%3A", "%2B", "%20", "%7B", "%7D", "%e2%82%ac", "%ff", "%C3", "/"]),
+    min_size=0, max_size=6).map("".join)
+
+
+@settings(max_examples=200, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(prefix=st.sampled_from(["/v2/", "/tags/", "/repositories/", "/files/", "/n/", "/"]),
+       parts=st.lists(_SEGMENT, min_size=0, max_size=4),
+       tail=st.sampled_from(["", "/manifests/v1", "/blobs/uploads/", "/blobs/uploads/u",
+                             "/blobs/sha256:ab", "/tags/list", "/digest/d", "/digest/d/replicate",
+                             "/tags", "/"]),
+       method=st.sampled_from(["GET", "PUT", "POST", "DELETE"]))
+def test_hypothesis_raw_targets_resolve_as_aiohttps_router(route_servers, prefix, parts, tail,
+                                                          method):
+    target = prefix + "/".join(parts) + tail
+    got = {k: _routed(p, method, target) for k, p in route_servers.items()}
+    assert got["port"] == got["aiohttp"], (method, target, got)
+
+
+@pytest.mark.parametrize("kind", ["port", "aiohttp"])
+def test_middlewares_run_in_order_and_see_the_routers_errors(kind):
+    """Two middlewares, the first outermost; a handler's answer, its
+    raised error, and the router's own 404 and 405 (with ``Allow``) all
+    pass through the chain, which rewrites them -- as in aiohttp."""
+    w = WEB[kind]
+    trace = []
+
+    def make(name):
+        @w.middleware
+        async def mw(req, handler):
+            trace.append(f"{name}>")
+            try:
+                resp = await handler(req)
+            except w.HTTPException as e:
+                trace.append(f"<{name}:{e.status}")
+                return w.json_response({"caught": e.status, "allow": e.headers.get("Allow"),
+                                        "ctype": e.content_type, "by": name}, status=e.status)
+            trace.append(f"<{name}")
+            resp.headers[f"X-{name}"] = "1"
+            return resp
+        return mw
+
+    async def ok(req):
+        trace.append("handler")
+        return w.Response(text="ok")
+
+    async def teapot(req):
+        raise w.HTTPConflict(text="no", content_type="application/json")
+
+    async def main():
+        app = w.Application(middlewares=[make("a"), make("b")])
+        app.router.add_get("/ok", ok)
+        app.router.add_post("/conflict", teapot)
+        port, stop = await start(kind, app)
+        out = []
+        try:
+            async with aiohttp.ClientSession() as s:
+                for method, path in (("GET", "/ok"), ("POST", "/conflict"), ("GET", "/none"),
+                                     ("PUT", "/ok")):
+                    async with s.request(method, f"http://127.0.0.1:{port}{path}") as r:
+                        body = await r.read()
+                        out.append((r.status, body if r.status == 200 else json.loads(body),
+                                    r.headers.get("X-a"), r.headers.get("X-b")))
+        finally:
+            await stop()
+        return out
+
+    out = asyncio.run(main())
+    assert out == [
+        (200, b"ok", "1", "1"),
+        (409, {"caught": 409, "allow": None, "ctype": "application/json", "by": "b"}, "1", None),
+        (404, {"caught": 404, "allow": None, "ctype": "text/plain", "by": "b"}, "1", None),
+        (405, {"caught": 405, "allow": "GET,HEAD", "ctype": "text/plain", "by": "b"}, "1", None),
+    ]
+    assert trace == ["a>", "b>", "handler", "<b", "<a", "a>", "b>", "<b:409", "<a",
+                     "a>", "b>", "<b:404", "<a", "a>", "b>", "<b:405", "<a"]
+
+
+FILE_RANGES = [None, "bytes=0-0", "bytes=5-9", "bytes=5-", "bytes=-3", "bytes=-0",
+               "bytes=100-99999999", "bytes=-99999999", f"bytes={300_000 - 1}-",
+               f"bytes={300_000}-", "bytes=400000-400001", "bytes=9-5", "bytes=a-b",
+               "bytes=1-2,4-5", "items=0-1", ""]
+
+
+@pytest.mark.parametrize("sendfile", [True, False], ids=["sendfile", "pread"])
+@pytest.mark.parametrize("method", ["GET", "HEAD"])
+def test_file_response_answers_as_aiohttps(tmp_path, monkeypatch, method, sendfile):
+    """The same file and Range headers through both servers'
+    ``FileResponse``: status, body, and the length, range, type, tag and
+    date headers; a missing file and an empty one too."""
+    monkeypatch.setattr(http_lite, "SENDFILE", sendfile)
+    data = blob_of(300_000, 11)
+    (tmp_path / "blob.bin").write_bytes(data)
+    (tmp_path / "empty").write_bytes(b"")
+    (tmp_path / "page.json").write_bytes(b"{}")
+    keys = ("content-length", "content-range", "accept-ranges", "content-type", "etag",
+            "last-modified", "x-extra")
+
+    async def main():
+        out = {}
+        for kind in ("port", "aiohttp"):
+            w = WEB[kind]
+
+            async def serve_file(req):
+                name = req.match_info["name"]
+                extra = {"X-Extra": "1"} if name == "blob.bin" else None
+                return w.FileResponse(tmp_path / name, headers=extra)
+
+            app = w.Application()
+            app.router.add_get("/f/{name}", serve_file)
+            port, stop = await start(kind, app)
+            try:
+                async with aiohttp.ClientSession(auto_decompress=False) as s:
+                    for name in ("blob.bin", "empty", "page.json", "missing"):
+                        for rng in FILE_RANGES:
+                            hdrs = {} if rng is None else {"Range": rng}
+                            async with s.request(method, f"http://127.0.0.1:{port}/f/{name}",
+                                                 headers=hdrs) as r:
+                                body = await r.read()
+                                out.setdefault(kind, []).append(
+                                    (name, rng, r.status, hashlib.sha256(body).hexdigest(),
+                                     {k: r.headers.get(k) for k in keys
+                                      if not (r.status >= 400 and k == "content-length")}))
+            finally:
+                await stop()
+        return out
+
+    out = asyncio.run(main())
+    assert out["port"] == out["aiohttp"]
+    by = {(n, r): (st_, h) for n, r, st_, _b, h in out["port"]}
+    assert by[("blob.bin", "bytes=5-")][0] == 206
+    assert by[("blob.bin", "bytes=5-")][1]["content-range"] == "bytes 5-299999/300000"
+    assert by[("blob.bin", f"bytes={300_000}-")][0] == 416
+    assert by[("blob.bin", "bytes=a-b")][1]["content-range"] == "bytes */300000"
+    assert by[("missing", None)][0] == 404
+
+
+def test_file_response_streams_a_large_file_off_the_loop(tmp_path):
+    """32 MiB through ``FileResponse`` on the port's server while the loop
+    keeps ticking: the body is never read on the loop."""
+    data = blob_of(32 * MiB, 12)
+    (tmp_path / "big").write_bytes(data)
+
+    async def main():
+        app = http_lite.Application()
+
+        async def big(req):
+            return http_lite.FileResponse(tmp_path / "big")
+
+        app.router.add_get("/big", big)
+        port, stop = await start("port", app)
+        ticks = 0
+        done = asyncio.Event()
+
+        async def ticker():
+            nonlocal ticks
+            while not done.is_set():
+                ticks += 1
+                await asyncio.sleep(0.001)
+
+        t = asyncio.create_task(ticker())
+        try:
+            async with aiohttp.ClientSession() as s:
+                async with s.get(f"http://127.0.0.1:{port}/big",
+                                 headers={"Range": f"bytes={MiB}-"}) as r:
+                    got = await r.read()
+                    status = r.status
+        finally:
+            done.set()
+            await t
+            await stop()
+        return status, got, ticks
+
+    status, got, ticks = asyncio.run(main())
+    assert status == 206 and got == data[MiB:] and ticks > 1
 
 
 # -- httputil: the JAX HTTPClient and the port's on one aiohttp server ----------

@@ -60,7 +60,11 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
                    "store/recovery.py", "store/scrub.py", "utils/profiler.py",
                    "utils/resources.py", "utils/canary.py", "p2p/delta.py",
                    "store/chunkstore.py", "agent/server.py", "utils/metrics.py",
-                   "assembly.py", "cli.py"):
+                   "assembly.py", "cli.py", "dockerregistry/__init__.py",
+                   "dockerregistry/errors.py", "dockerregistry/transfer.py",
+                   "dockerregistry/registry.py", "buildindex/__init__.py",
+                   "buildindex/tagtype.py", "buildindex/tagstore.py",
+                   "buildindex/server.py"):
         assert f"kraken_tpu_torch/{module}" in scanned, module
     bad = {
         str(f.relative_to(REPO)): m
@@ -260,27 +264,45 @@ cli._run_until_signal = boot
 cli.main(sys.argv[1:])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "kraken_tpu", "msgpack", "yaml", "aiohttp"))
-print(json.dumps({"forbidden": bad, "port": "kraken_tpu_torch.assembly" in sys.modules}))
+from kraken_tpu_torch.ops import cuda_lib
+import torch
+print(json.dumps({"forbidden": bad, "port": "kraken_tpu_torch.assembly" in sys.modules,
+                  "card": cuda_lib._lib is not None or torch.cuda.is_initialized()}))
 """
 
+# The build-index and the proxy ship only a base file; their peers come
+# from flags, as the reference's herd gives them.
+CLI_ARGS = {
+    "build-index": ["--config", str(REPO / "config/build-index/base.yaml"),
+                    "--origins", "127.0.0.1:1"],
+    "proxy": ["--config", str(REPO / "config/proxy/base.yaml"), "--origins", "127.0.0.1:1",
+              "--build-index", "127.0.0.1:1"],
+}
 
-@pytest.mark.parametrize("component", ["tracker", "origin", "agent"])
+
+@pytest.mark.parametrize("component", ["tracker", "origin", "agent", "build-index", "proxy"])
 def test_a_cli_node_loads_none_of_the_forbidden_packages(tmp_path, component):
     """What ``python -m kraken_tpu_torch.cli <component>`` runs -- the
-    config read, the node built from the shipped development file,
-    started and stopped -- in a fresh interpreter, then its
-    ``sys.modules``."""
+    config read, the node built from the shipped development file (the
+    base file for the build-index and the proxy), started and stopped --
+    in a fresh interpreter, then its ``sys.modules``; no node here loads
+    the kernel library or makes a CUDA context (the build-index and the
+    proxy never do)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
-    args = ["--config", str(REPO / "config" / component / "development.yaml"), "--port", "0"]
-    if component != "tracker":
-        args += ["--p2p-port", "0", "--store", str(tmp_path / "s"), "--tracker", "127.0.0.1:1"]
+    args = CLI_ARGS.get(component, [
+        "--config", str(REPO / "config" / component / "development.yaml")]) + ["--port", "0"]
+    if component in ("origin", "agent"):
+        args += ["--p2p-port", "0", "--tracker", "127.0.0.1:1"]
+    if component != "tracker" and component != "proxy":
+        args += ["--store", str(tmp_path / "s")]
     r = subprocess.run(
         [sys.executable, "-c", _CLI_CHILD, component, *args], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr[-3000:]
-    assert json.loads(r.stdout.strip().splitlines()[-1]) == {"forbidden": [], "port": True}
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == {"forbidden": [], "port": True,
+                                                             "card": False}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
