@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs fifteen phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs sixteen phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -243,13 +243,32 @@ without a result:
    on the card, at least the image's bytes hashed there; the second pull
    launching nothing; the build-index's tag equal to the manifest's
    digest; this process launching nothing.
+16. ``delta`` -- a rebuilt layer pulled by delta over the chunk tier:
+   tracker, origin and agent A with ``delta`` and ``chunkstore`` on, and
+   agent B with the shipped values (both off) as the control, four CLI
+   processes started together, ``--hasher cuda``. Two consecutive builds
+   of ~1 GiB by the reference's ``_make_build_pair`` (1024 files of 1 MiB
+   behind 64 B unique headers, ``reuse=0.8``, seeded): both uploaded; the
+   origin's dedup pass and chunk conversion awaited, each build then
+   chunk-backed with no flat file; A pulls build 1 (seeded by the
+   chunk-backed origin) then build 2, B build 2. Gates: every pull
+   byte-identical with its SHA-256 = its digest; A's build-2 moved bytes
+   (``p2p_piece_bytes_down_total`` + ``delta_bytes_fetched_total``) at
+   most ``DELTA_BAND_MAX`` of B's, with local copies; no host verify
+   batch in A or B and no hashlib piece at the origin; ``sha256_uniform``,
+   ``sha256_ragged`` and ``gear_candidates`` launched at the origin and
+   ``sha256_ragged`` at each agent. Each pull's wall is split at the
+   response head, the prefill by ``delta_stage_seconds_total{stage}``
+   (plan, copy, recheck, fetch, write), the rest being the swarm; each
+   tier's stored and logical bytes; a SIGHUP turning A's delta off, read
+   on its log; SIGTERM drains.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
 swarm leg and the tracker phase's pulls, and each seeder's metainfo; each
-leg of phase 13; phase 14's and phase 15's children, through their
+leg of phase 13; phase 14's, 15's and 16's children, through their
 ``/metrics``) and
 read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
@@ -1895,17 +1914,19 @@ def delta(before: str, after: str, name: str, **labels) -> float:
     return metric(after, name, **labels) - metric(before, name, **labels)
 
 
-def herd_config(root: str, component: str, extra: str = "") -> str:
+def herd_config(root: str, component: str, extra: str = "", name: str = "") -> str:
     """A config extending the shipped base by its relative path, with only
     the keys the component reads: host and ports, its store, no
-    backends."""
+    backends. ``name`` (default: the component) names the file and the
+    store, for two nodes of one component."""
+    name = name or component
     base = os.path.relpath(REPO / "config" / component / "base.yaml", root)
-    path = os.path.join(root, f"{component}.yaml")
+    path = os.path.join(root, f"{name}.yaml")
     body = [f"extends: {base}", "host: 127.0.0.1", "port: 0"]
     if component in ("origin", "agent"):
         body += ["p2p_port: 0"]
     if component in ("origin", "agent", "build-index"):
-        body += [f"store: {os.path.join(root, component)}"]
+        body += [f"store: {os.path.join(root, name)}"]
     if component in ("origin", "build-index"):
         body += ["backends: []"]
     with open(path, "w") as f:
@@ -2474,6 +2495,290 @@ def front_door_phase(root: str, card_name_power: str) -> dict:
         emit({"phase": "front_door", "leg": "signals", "drain_to_exit_s": drains,
               "card": card_name_power})
         return {"ready_s": ready, "push_s": push_s, "pull_s": pull_s, "counters": got}
+    finally:
+        for c in children:
+            c.stop(kill=True)
+
+
+# -- phase 16, delta pulls over the chunk tier ----------------------------------
+# Two consecutive builds of one layer, made by the reference's recipe
+# (tests/test_delta.py ``_make_build_pair``) scaled to the shipped 64 KiB
+# average chunk: 1024 files of 1 MiB (16 average chunks a file, as the
+# reference's 16 KiB files hold at its 1 KiB average), a 64 B unique header
+# before each, build 2 reusing 80 % of build 1's files, shuffled. Tracker,
+# origin (delta and chunk tier on), agent A (delta and chunk tier on) and
+# agent B (the shipped values: both off, the control) as four CLI processes.
+DELTA_NS = "library/delta"
+DELTA_FILES = 1024
+DELTA_FILE = MiB
+DELTA_REUSE = 0.8
+DELTA_BAND_MAX = 0.6  # the reference's BAND_MAX (tests/test_delta.py:37)
+DELTA_TIMEOUT_S = 300.0
+DELTA_ON = "delta:\n  enabled: true\nchunkstore:\n  enabled: true\n"
+DELTA_KERNELS = ("sha256_uniform", "sha256_ragged", "sha256_packed_tiles",
+                 "pack_tiles_device", "gear_candidates", "transpose_only")
+
+
+def make_build_pair(rng, n_files: int, file_bytes: int, reuse: float) -> tuple[bytes, bytes]:
+    """The reference's build pair: (64 B unique header + file) per member,
+    build 2 keeping ``reuse`` of build 1's files in shuffled order."""
+    files = [rng.integers(0, 256, size=file_bytes, dtype=np.uint8).tobytes()
+             for _ in range(2 * n_files)]
+
+    def layer(members):
+        parts = []
+        for fi in members:
+            parts.append(rng.integers(0, 256, size=64, dtype=np.uint8).tobytes())
+            parts.append(files[fi])
+        return b"".join(parts)
+
+    m1 = list(range(n_files))
+    n_keep = int(n_files * reuse)
+    m2 = m1[:n_keep] + list(range(n_files, 2 * n_files - n_keep))
+    rng.shuffle(m2)
+    return layer(m1), layer(m2)
+
+
+def require_delta_path(got: dict) -> None:
+    """The gates that read where the work ran: no host verify batch in
+    either agent, and the kernels of the path launched in each process."""
+    if got["a_host_batches"] or got["b_host_batches"]:
+        raise AssertionError(f"delta: a verify batch ran on the host: {got}")
+    if got["origin_cpu_pieces"]:
+        raise AssertionError(f"delta: the origin hashed pieces with hashlib: {got}")
+    o, a, b = got["origin_launches"], got["a_launches"], got["b_launches"]
+    if not (o["sha256_uniform"] and o["sha256_ragged"] and o["gear_candidates"]
+            and a["sha256_ragged"] and b["sha256_ragged"]):
+        raise AssertionError(f"delta: a kernel of the path did not launch: {got}")
+
+
+def delta_phase(root: str, card_name_power: str) -> dict:
+    """Phase 16: build 1 and build 2 uploaded to a chunk-tier origin,
+    pulled by a delta agent and by a control. Returns the numbers and
+    the children's counters that the kernels line carries."""
+    from kraken_tpu_torch import CAStore, Digest
+    from kraken_tpu_torch.configutil import load_config
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.deadline import RPCConfig
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+
+    t0 = time.perf_counter()
+    builds = make_build_pair(np.random.default_rng(SEED + 160), DELTA_FILES, DELTA_FILE,
+                             DELTA_REUSE)
+    digests = [Digest.from_bytes(b) for b in builds]
+    corpus_s = time.perf_counter() - t0
+    children: list[HerdChild] = []
+    hasher = ["--hasher", HERD_HASHER]
+    try:
+        t_port, o_port = free_ports(2)
+        t_addr, o_addr = f"127.0.0.1:{t_port}", f"127.0.0.1:{o_port}"
+        specs = [
+            ("tracker", "tracker", "", ["--port", str(t_port), "--origins", o_addr]),
+            ("origin", "origin", DELTA_ON, ["--port", str(o_port), "--tracker", t_addr, *hasher]),
+            ("agent_a", "agent", DELTA_ON, ["--tracker", t_addr, *hasher]),
+            ("agent_b", "agent", "", ["--tracker", t_addr, *hasher]),
+        ]
+        for name, component, extra, flags in specs:
+            cfg = herd_config(root, component, extra, name)
+            children.append(HerdChild(root, name, [component, "--config", cfg, *flags],
+                                      wait=False))
+        for c in children:
+            c.wait_ready()
+        tracker, origin, agent_a, agent_b = children
+        ready = {c.name: c.ready_s for c in children}
+        emit({"phase": "delta", "ready_s": ready, "corpus_s": corpus_s,
+              "build_bytes": [len(b) for b in builds],
+              "addrs": {c.name: c.addr for c in children}, "card": card_name_power})
+        o0, a0, b0 = origin.metrics(), agent_a.metrics(), agent_b.metrics()
+
+        async def upload() -> list[float]:
+            client = BlobClient(origin.addr, HTTPClient(retries=0))
+            walls = []
+            try:
+                for blob, d in zip(builds, digests):
+                    t0 = time.perf_counter()
+                    await asyncio.wait_for(
+                        client.upload(DELTA_NS, d, blob, chunk_size=ORIGIN_CHUNK), DELTA_TIMEOUT_S)
+                    walls.append(time.perf_counter() - t0)
+            finally:
+                await client.close()
+            return walls
+
+        upload_s = asyncio.run(upload())
+        # The origin's dedup pass builds each build's recipe (gear kernel,
+        # fingerprints on the card), then converts the blob to manifest and
+        # chunks: wait for both conversions.
+        t0 = time.perf_counter()
+        o1 = origin.metrics()
+        while delta(o0, o1, "chunkstore_converts_total", outcome="converted") < 2:
+            if time.perf_counter() - t0 > DELTA_TIMEOUT_S:
+                raise AssertionError("delta: the origin did not convert both builds: "
+                                     + origin.log()[-3000:])
+            time.sleep(0.25)
+            o1 = origin.metrics()
+        convert_wait_s = time.perf_counter() - t0
+        ostore = CAStore(os.path.join(root, "origin"))
+        for d in digests:
+            if os.path.exists(ostore.cache_path(d)) or not os.path.exists(
+                    ostore.cache_path(d) + "._md_chunk_manifest"):
+                raise AssertionError(f"delta: the origin holds {d.hex[:12]} flat")
+        origin_tier = {"stored_bytes": metric(o1, "chunkstore_stored_bytes"),
+                       "logical_bytes": metric(o1, "chunkstore_logical_bytes"),
+                       "dedup_chunks": delta(o0, o1, "origin_dedup_unique_chunks"),
+                       "add_s": delta(o0, o1, "chunkstore_seconds_total", stage="add"),
+                       "check_s": delta(o0, o1, "chunkstore_seconds_total", stage="check"),
+                       "mismatch": delta(o0, o1, "chunkstore_converts_total",
+                                         outcome="mismatch")}
+        if origin_tier["logical_bytes"] != sum(len(b) for b in builds) or origin_tier["mismatch"]:
+            raise AssertionError(f"delta: the origin's chunk tier {origin_tier}")
+
+        async def pull(agent: HerdChild, blob: bytes, d) -> dict:
+            """GET on the agent's API: the response head marks the end of
+            the pull (metainfo, delta prefill, swarm), the body the serve."""
+            url = f"http://{agent.addr}/namespace/{quote(DELTA_NS, safe='')}/blobs/{d.hex}"
+            before = agent.metrics()
+            h = hashlib.sha256()
+            n = 0
+            same = True
+            timeout = http_lite.ClientTimeout(total=DELTA_TIMEOUT_S)
+            async with http_lite.ClientSession(timeout=timeout) as session:
+                t0 = time.perf_counter()
+                async with session.get(url) as resp:
+                    head_s = time.perf_counter() - t0
+                    async for chunk in resp.content.iter_chunked(1 << 20):
+                        same = same and chunk == blob[n:n + len(chunk)]
+                        n += len(chunk)
+                        h.update(chunk)
+                wall = time.perf_counter() - t0
+            after = agent.metrics()
+            if resp.status != 200 or not same or n != len(blob) or h.hexdigest() != d.hex:
+                raise AssertionError(f"delta: {agent.name} pulled {d.hex[:12]}: status "
+                                     f"{resp.status}, {n} B, identical {same}")
+
+            def moved(name, **labels):
+                return delta(before, after, name, **labels)
+
+            stages = {k: moved("delta_stage_seconds_total", stage=k)
+                      for k in ("prefill", "plan", "copy", "recheck", "fetch", "write")}
+            batches = moved("verify_batches_total", path="cuda")
+            return {
+                "agent": agent.name, "blob_bytes": len(blob), "wall_s": wall,
+                "head_s": head_s, "serve_s": wall - head_s,
+                "serve_gbps": len(blob) / max(wall - head_s, 1e-9) / 1e9,
+                "prefill_s": stages["prefill"], "stages_s": stages,
+                "swarm_s": head_s - stages["prefill"],
+                "piece_bytes_down": moved("p2p_piece_bytes_down_total"),
+                "fetched_bytes": moved("delta_bytes_fetched_total"),
+                "copied_bytes": moved("delta_bytes_copied_local_total"),
+                "delta_pulls": {o: moved("delta_pulls_total", outcome=o)
+                                for o in ("delta", "no_base", "no_cover", "recipe_miss")},
+                "chunk_rejects": moved("delta_chunk_verify_failures_total"),
+                "verify_batches": batches,
+                "host_batches": moved("verify_batches_total", path="host"),
+                "rows_per_batch": moved("verify_pieces_total") / batches if batches else 0.0,
+                "launches": {k: moved("kernel_launches_total", kernel=k) for k in DELTA_KERNELS},
+            }
+
+        legs = {}
+        for key, agent, i in (("a_build1", agent_a, 0), ("a_build2", agent_a, 1),
+                              ("b_build2", agent_b, 1)):
+            ob = origin.metrics()
+            r = asyncio.run(pull(agent, builds[i], digests[i]))
+            r["moved_bytes"] = r["piece_bytes_down"] + r["fetched_bytes"]
+            r["moved_ratio"] = r["moved_bytes"] / len(builds[i])
+            r["origin_piece_bytes_up"] = delta(ob, origin.metrics(), "p2p_piece_bytes_up_total")
+            legs[key] = r
+            emit({"phase": "delta", "leg": key, **r, "card": card_name_power})
+        # Build 1's only seeder was the origin, which holds it in its chunk
+        # tier: every piece came through a composed chunk reader.
+        if legs["a_build1"]["origin_piece_bytes_up"] < len(builds[0]):
+            raise AssertionError(f"delta: the chunk-backed origin did not seed build 1: "
+                                 f"{legs['a_build1']}")
+        # Agent A converts each completed pull into its chunk tier in the
+        # background: wait for both, then read its tier.
+        t0 = time.perf_counter()
+        a1 = agent_a.metrics()
+        while delta(a0, a1, "chunkstore_converts_total", outcome="converted") < 2:
+            if time.perf_counter() - t0 > DELTA_TIMEOUT_S:
+                raise AssertionError("delta: agent A did not convert both pulls: "
+                                     + agent_a.log()[-3000:])
+            time.sleep(0.25)
+            a1 = agent_a.metrics()
+        b1 = agent_b.metrics()
+        o2 = origin.metrics()
+        agent_tier = {"stored_bytes": metric(a1, "chunkstore_stored_bytes"),
+                      "logical_bytes": metric(a1, "chunkstore_logical_bytes"),
+                      "add_s": delta(a0, a1, "chunkstore_seconds_total", stage="add"),
+                      "check_s": delta(a0, a1, "chunkstore_seconds_total", stage="check")}
+        got = {
+            "origin_launches": {k: delta(o0, o2, "kernel_launches_total", kernel=k)
+                                for k in DELTA_KERNELS},
+            "a_launches": {k: delta(a0, a1, "kernel_launches_total", kernel=k)
+                           for k in DELTA_KERNELS},
+            "b_launches": {k: delta(b0, b1, "kernel_launches_total", kernel=k)
+                           for k in DELTA_KERNELS},
+            "a_host_batches": delta(a0, a1, "verify_batches_total", path="host"),
+            "b_host_batches": delta(b0, b1, "verify_batches_total", path="host"),
+            "origin_cuda_pieces": delta(o0, o2, "hasher_pieces_total", hasher="cuda"),
+            "origin_cpu_pieces": delta(o0, o2, "hasher_pieces_total", hasher="cpu"),
+            "origin_ingest_windows": delta(o0, o2, "ingest_windows_total", hasher="cuda"),
+            "origin_chunk_route_bps": {path: metric(o2, "dedup_chunk_route_bps", path=path)
+                                       for path in ("host", "device")},
+        }
+        a2, b2 = legs["a_build2"], legs["b_build2"]
+        ratio = a2["moved_bytes"] / b2["moved_bytes"]
+        if ratio > DELTA_BAND_MAX:
+            raise AssertionError(f"delta: agent A's build-2 pull moved {ratio:.3f}x agent B's "
+                                 f"(band <= {DELTA_BAND_MAX}): {a2} {b2}")
+        if a2["copied_bytes"] <= 0 or a2["delta_pulls"]["delta"] != 1:
+            raise AssertionError(f"delta: agent A copied nothing locally: {a2}")
+        require_delta_path(got)
+        emit({"phase": "delta", "leg": "tiers", "upload_s": upload_s,
+              "convert_wait_s": convert_wait_s, "origin_tier": origin_tier,
+              "agent_a_tier": agent_tier, "a_over_b_moved": ratio,
+              "origin_cuda_pieces": got["origin_cuda_pieces"],
+              "origin_ingest_windows": got["origin_ingest_windows"],
+              "origin_launches": got["origin_launches"],
+              "origin_chunk_route_bps": got["origin_chunk_route_bps"],
+              "checks": ["every pull byte-identical, its SHA-256 = its digest",
+                         "both builds chunk-backed at the origin, no flat file",
+                         "the chunk-backed origin seeded all of build 1",
+                         f"agent A's build-2 pull moved <= {DELTA_BAND_MAX}x agent B's",
+                         "agent A copied bytes from its local base",
+                         "no host verify batch in either agent",
+                         "origin: sha256_uniform, sha256_ragged, gear_candidates launched; "
+                         "agents: sha256_ragged launched"],
+              "card": card_name_power})
+
+        # SIGHUP: agent A turns delta off live and logs the planes' state.
+        herd_config(root, "agent", "delta:\n  enabled: false\nchunkstore:\n  enabled: true\n",
+                    "agent_a")
+        t0 = time.perf_counter()
+        agent_a.proc.send_signal(signal.SIGHUP)
+        while '"delta_enabled": false' not in agent_a.log():
+            if time.perf_counter() - t0 > HERD_SIGHUP_S:
+                raise AssertionError("delta: SIGHUP did not turn delta off: "
+                                     + agent_a.log()[-2000:])
+            time.sleep(0.1)
+        sighup_s = time.perf_counter() - t0
+
+        drains = {}
+        for c, component in ((agent_a, "agent"), (agent_b, "agent"), (origin, "origin"),
+                             (tracker, "tracker")):
+            cfg = load_config(str(REPO / "config" / component / "base.yaml"))
+            limit = RPCConfig.from_dict(cfg.get("rpc")).drain_timeout_seconds
+            t0 = time.perf_counter()
+            rc = c.stop()
+            drains[c.name] = time.perf_counter() - t0
+            if rc != 0 or drains[c.name] > limit or "drain quiesced" not in c.log():
+                raise AssertionError(f"delta: {c.name} exit {rc} after {drains[c.name]:.1f} s:\n"
+                                     + c.log()[-3000:])
+        children.clear()
+        emit({"phase": "delta", "leg": "signals", "sighup_applied_s": sighup_s,
+              "drain_to_exit_s": drains, "card": card_name_power})
+        return {"ready_s": ready, "legs": legs, "counters": got, "ratio": ratio,
+                "origin_tier": origin_tier, "agent_tier": agent_tier}
     finally:
         for c in children:
             c.stop(kill=True)
@@ -3305,6 +3610,25 @@ def main() -> int:
         raise AssertionError(f"front door: this process launched kernels: {own.read()}")
     fc = front["counters"]
 
+    # -- 16. delta: build over build through the chunk tier and delta pulls -
+    gc.collect()
+    work.mkdir(exist_ok=True)
+    delta_start = time.perf_counter()
+    own.reset()
+    try:
+        dlt = delta_phase(tempfile.mkdtemp(dir=work), card.name_power)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    delta_secs = time.perf_counter() - delta_start
+    if any(own.read().values()):
+        raise AssertionError(f"delta: this process launched kernels: {own.read()}")
+    dc = dlt["counters"]
+
+    def delta_launches(name: str) -> dict:
+        """Phase 16's launches of one wrapper, by process."""
+        return {"origin": dc["origin_launches"][name], "agent_a": dc["a_launches"][name],
+                "agent_b": dc["b_launches"][name]}
+
     def origin_launches(name: str) -> dict:
         """Phase 13's launches of one wrapper, by leg."""
         return {leg: r["launches"].get(name, 0) for leg, r in origin_legs.items()
@@ -3331,7 +3655,7 @@ def main() -> int:
          "swarm_launches": {leg: r["launches"]["sha256_uniform"] for leg, r in swarm.items()},
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_uniform"],
          "tracker_launches": fleet["launches"]["sha256_uniform"],
-         "origin_http_launches": origin_launches("sha256_uniform"),
+         "origin_http_launches": origin_launches("sha256_uniform"), "delta_launches": delta_launches("sha256_uniform"),
          "herd_launches": {"origin": hc["origin_launches"]["sha256_uniform"],
                            "agent": hc["agent_launches"]["sha256_uniform"]},
          "herd_origin_ingest_windows": hc["origin_ingest_windows"],
@@ -3346,7 +3670,7 @@ def main() -> int:
          "swarm_launches": {leg: r["launches"]["sha256_ragged"] for leg, r in swarm.items()},
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_ragged"],
          "tracker_launches": fleet["launches"]["sha256_ragged"],
-         "origin_http_launches": origin_launches("sha256_ragged"),
+         "origin_http_launches": origin_launches("sha256_ragged"), "delta_launches": delta_launches("sha256_ragged"),
          "herd_launches": {"origin": hc["origin_launches"]["sha256_ragged"],
                            "agent": hc["agent_launches"]["sha256_ragged"]},
          "herd_verify_batches": hc["agent_cuda_batches"],
@@ -3364,7 +3688,7 @@ def main() -> int:
          "launches": ingest_launches["pack_tiles_device"], "max_abs_err": 0,
          "ms": pack_ms, "plain_ms": pack_plain_ms, "bound_ms": pack_bound_ms,
          "bound_by": pack_bound_by, "library_ms": pack_library_ms,
-         "origin_http_launches": origin_launches("pack_tiles_device"),
+         "origin_http_launches": origin_launches("pack_tiles_device"), "delta_launches": delta_launches("pack_tiles_device"),
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 4 MiB"},
         {"name": "sha256_packed_tiles", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -3373,7 +3697,7 @@ def main() -> int:
          "ms": packed_ms, "plain_ms": packed_plain_ms, "library_ms": None,
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 16 KiB",
          "ms_at_plain_shape": packed16_ms,
-         "origin_http_launches": origin_launches("sha256_packed_tiles"),
+         "origin_http_launches": origin_launches("sha256_packed_tiles"), "delta_launches": delta_launches("sha256_packed_tiles"),
          **sha_entry(packed_main, PACKED_KERNEL)},
         {"name": "gear_candidates", "kernel": GEAR_KERNEL, "route": "cuda",
          "source": "kraken_tpu_torch/csrc/gear.cu",
@@ -3383,7 +3707,7 @@ def main() -> int:
          "bound_by": gear_leg["bound_by"], "ops_bound_ms": gear_leg["ops_bound_ms"],
          "bytes_bound_ms": gear_leg["bytes_bound_ms"], "library_ms": gear_library_ms,
          "sass_per_byte": gear_sass,
-         "origin_http_launches": origin_launches("gear_candidates"),
+         "origin_http_launches": origin_launches("gear_candidates"), "delta_launches": delta_launches("gear_candidates"),
          "herd_launches": {"origin": hc["origin_launches"]["gear_candidates"],
                            "agent": hc["agent_launches"]["gear_candidates"]},
          "front_door_launches": {"origin": fc["origin_launches"]["gear_candidates"],
@@ -3394,7 +3718,7 @@ def main() -> int:
         {"name": "transpose_only", "route": "cuda", "source": "kraken_tpu_torch/csrc/transpose.cu",
          "replaces": "bench_transpose.py:80", "launches": main_launches["transpose_only"],
          "relayout_launches": relayout_launches,
-         "origin_http_launches": origin_launches("transpose_only"), "max_abs_err": t_err,
+         "origin_http_launches": origin_launches("transpose_only"), "delta_launches": delta_launches("transpose_only"), "max_abs_err": t_err,
          "ms": full["transpose_only_ms"], "plain_ms": full["transpose_only_plain_ms"],
          "bound_ms": t_bound["bound_ms"], "bound_by": t_bound["bound_by"], "library_ms": None,
          "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
@@ -3403,6 +3727,7 @@ def main() -> int:
         "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
         "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,
         "herd_seconds": herd_secs, "front_door_seconds": front_secs,
+        "delta_seconds": delta_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

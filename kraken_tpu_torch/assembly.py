@@ -17,11 +17,12 @@ one node per process; tests run several per process. Config keys follow the comp
   ``OriginServer`` reads ``resume`` and ``serve_while_ingest`` from that
   pipeline's config, live.
 - The planes that wait for later items are configured but not started:
-  the resource sentinel and the canary prober (A7e), the delta planner
-  and the chunk tier (A7f). Their config classes refuse a value that
-  would turn them on (``ValueError`` naming the key and the item), at
-  start and on SIGHUP alike. The multi-core data plane's worker counts
-  are refused by ``SchedulerConfig`` (A7g).
+  the resource sentinel and the canary prober (A7e). Their config
+  classes refuse a value that would turn them on (``ValueError`` naming
+  the key and the item), at start and on SIGHUP alike. The delta planner
+  and the chunk tier run as in the reference, on and off by SIGHUP. The
+  multi-core data plane's worker counts are refused by
+  ``SchedulerConfig`` (A7g).
 - Every app serves ``GET /metrics`` (``instrument_app``); the
   per-endpoint middleware waits for A7e.
 - The build-index and the proxy do no device work, in the reference
@@ -54,7 +55,7 @@ from kraken_tpu_torch.origin.metainfogen import (
 )
 from kraken_tpu_torch.origin.server import OriginServer, QuorumConfig
 from kraken_tpu_torch.origin.writeback import WritebackExecutor
-from kraken_tpu_torch.p2p.delta import DeltaConfig
+from kraken_tpu_torch.p2p.delta import DeltaConfig, DeltaPlanner
 from kraken_tpu_torch.p2p.pex import PexConfig
 from kraken_tpu_torch.p2p.scheduler import Scheduler, SchedulerConfig
 from kraken_tpu_torch.p2p.storage import (
@@ -67,7 +68,7 @@ from kraken_tpu_torch.persistedretry import TaskStore
 from kraken_tpu_torch.placement import Ring
 from kraken_tpu_torch.placement.healthcheck import ActiveMonitor
 from kraken_tpu_torch.store import CAStore
-from kraken_tpu_torch.store.chunkstore import ChunkStoreConfig
+from kraken_tpu_torch.store.chunkstore import ChunkGC, ChunkStore, ChunkStoreConfig
 from kraken_tpu_torch.store.cleanup import CleanupConfig, CleanupManager
 from kraken_tpu_torch.store.recovery import (
     quarantine_namespace,
@@ -210,6 +211,53 @@ def _config(cls, doc):
 
 def _scrub_config(scrub) -> ScrubConfig | None:
     return ScrubConfig(**scrub) if isinstance(scrub, dict) else scrub
+
+
+def _sync_chunkstore(node) -> None:
+    """Attach (or re-configure) a node's chunk tier to match its
+    ``chunkstore:`` config -- at construction AND on SIGHUP reload.
+    The tier object attaches when the knob is on OR when the tier
+    directory already holds state: a node restarted with the knob
+    turned off must keep serving its manifest-backed blobs (disabling
+    gates NEW conversions only)."""
+    store: CAStore = node.store
+    cfg: ChunkStoreConfig = node.chunkstore_config
+    if store.chunkstore is not None:
+        store.chunkstore.config = cfg
+        return
+    chunks_root = os.path.join(store.root, "chunks")
+    if cfg.enabled or os.path.isdir(chunks_root):
+        store.attach_chunkstore(ChunkStore(
+            chunks_root, cfg,
+            quarantine_dir=store.quarantine_dir,
+            durability=store.durability,
+        ))
+
+
+def _log_tier_reload(node) -> None:
+    """One line for a reload that touched ``delta:`` or ``chunkstore:``,
+    so the planes' state after a SIGHUP shows outside the process."""
+    _log.info(
+        "delta and chunk tier reloaded",
+        extra={
+            "delta_enabled": node.delta_config.enabled,
+            "chunkstore_enabled": node.chunkstore_config.enabled,
+            "chunkstore_attached": node.store.chunkstore is not None,
+        },
+    )
+
+
+def _sync_chunk_gc(node) -> None:
+    """Start the budgeted zero-ref reaper once a tier is attached and a
+    loop is running (start() and the live-enable reload path)."""
+    if node.store.chunkstore is None or node.chunk_gc is not None:
+        return
+    try:
+        asyncio.get_running_loop()
+    except RuntimeError:
+        return  # offline reload: the next start() picks it up
+    node.chunk_gc = ChunkGC(node.store.chunkstore)
+    node.chunk_gc.start()
 
 
 def _sync_ingest(node) -> None:
@@ -523,10 +571,20 @@ class OriginNode:
         self.p2p_port = p2p_port
         self.tracker_addr = tracker_addr
         self.store = CAStore(store_root, durability=durability)
-        # Planes that wait (A7e, A7f): their sections load, and a value
-        # that would turn one on raises here, before anything starts.
+        # Content-addressed chunk tier (store/chunkstore.py): keep each
+        # chunk once, serve blobs as manifests. YAML `chunkstore:`;
+        # shipped OFF; SIGHUP live-reloads (enable = attach + convert
+        # from the next dedup pass on). Attached BEFORE fsck so the
+        # startup pass covers the tier.
         self.chunkstore_config = _config(ChunkStoreConfig, chunkstore)
+        self.chunk_gc: Optional[ChunkGC] = None
+        _sync_chunkstore(self)
+        # A plane that waits (A7e): its section loads, and a value that
+        # would turn it on raises here, before anything starts.
         self.resources_config = _config(ResourcesConfig, resources)
+        # Delta-transfer plane (p2p/delta.py): the origin serves chunk
+        # recipes on GET .../recipe when enabled (shipped OFF); SIGHUP
+        # live-reloads.
         self.delta_config = _config(DeltaConfig, delta)
         # hash_workers sizes the HOST piece-hash pool (cpu hasher only;
         # the card's parallelism is the batch axis).
@@ -725,6 +783,7 @@ class OriginNode:
             # at stream time).
             stream_piece_hash=self.hasher_name == "cpu",
             rpc=self.rpc,
+            delta=self.delta_config,
             ingest_pipeline=self.ingest_pipeline,
             quorum=self.quorum_config,
         )
@@ -752,6 +811,9 @@ class OriginNode:
                 on_corrupt=self._on_scrub_corrupt,
             )
             self.scrubber.start()
+        # Chunk-tier GC: budgeted zero-ref chunk reaper (watermark
+        # pressure bypasses the budget inside the cleanup sweep).
+        _sync_chunk_gc(self)
         # Seed everything already on disk. A blob whose metainfo sidecar
         # was lost gets it regenerated in the background.
         missing: list[Digest] = []
@@ -829,14 +891,25 @@ class OriginNode:
             self.trace_config = parsed["trace"]
             _apply_trace("origin", self.trace_config, self.store.root)
         if "delta" in parsed:
+            # Live enable/disable of the recipe endpoint: rollout step 1
+            # (origins first) is a SIGHUP, not a restart.
             self.delta_config = parsed["delta"]
+            if self.server is not None:
+                self.server.delta_config = self.delta_config
         if "profiling" in parsed:
             self.profiling_config = _apply_profiling(
                 "origin", parsed["profiling"], self.store.root
             )
             _sync_loop_monitor(self, "origin")
         if "chunkstore" in parsed:
+            # Live enable = attach tier + start GC; new blobs convert
+            # from the next dedup pass. Live disable stops NEW
+            # conversions only -- manifest-backed blobs keep serving.
             self.chunkstore_config = parsed["chunkstore"]
+            _sync_chunkstore(self)
+            _sync_chunk_gc(self)
+        if "delta" in parsed or "chunkstore" in parsed:
+            _log_tier_reload(self)
         if "slo" in parsed:
             self.slo_config = parsed["slo"]
             _apply_slo("origin", self.slo_config)
@@ -976,6 +1049,9 @@ class OriginNode:
             self.loop_monitor.stop()
         if self.scrubber:
             self.scrubber.stop()
+        if self.chunk_gc:
+            self.chunk_gc.stop()
+            self.chunk_gc = None
         for t in list(self._repair_tasks):
             t.cancel()
         self.retry.stop()
@@ -1170,12 +1246,25 @@ class AgentNode:
         self.tag_cache_ttl = tag_cache_ttl
         self.tracker_addr = tracker_addr
         self.store = CAStore(store_root, durability=durability)
-        # Planes that wait (A7e, A7f): their sections load, and a value
-        # that would turn one on raises here, before anything starts.
+        # Content-addressed chunk tier (store/chunkstore.py): completed
+        # pulls whose recipe the delta planner fetched convert to
+        # manifest + refcounted chunks -- agents are the tier's first
+        # rollout ring. YAML `chunkstore:`; shipped OFF; SIGHUP
+        # live-reloads. Attached before fsck.
         self.chunkstore_config = _config(ChunkStoreConfig, chunkstore)
+        self.chunk_gc: Optional[ChunkGC] = None
+        _sync_chunkstore(self)
+        # Planes that wait (A7e): their sections load, and a value that
+        # would turn one on raises here, before anything starts.
         self.resources_config = _config(ResourcesConfig, resources)
-        self.delta_config = _config(DeltaConfig, delta)
         self.canary_config = _config(CanaryConfig, canary)
+        # Delta-transfer plane (p2p/delta.py): on a pull, copy the chunks
+        # a locally-held near-duplicate blob already has and fetch only
+        # the rest (origin byte ranges + swarm pieces). Shipped OFF;
+        # YAML `delta:`; SIGHUP live-reloads (the planner is always
+        # constructed so a reload can enable it without a restart).
+        self.delta_config = _config(DeltaConfig, delta)
+        self.delta: Optional[DeltaPlanner] = None
         # CPU verify: one-tick batching (per-piece hashlib is cheap). Card
         # verify: a 2 ms window so arrivals coalesce into real device
         # batches. hash_workers >= 2 gives the cpu verify a host pool.
@@ -1281,15 +1370,23 @@ class AgentNode:
             hedge_delay_seconds=self.rpc.hedge_delay_seconds,
             recipe_cache_ttl_seconds=self.recipe_cache_ttl,
         )
+        archive = AgentTorrentArchive(self.store, self.verifier)
+        # Always constructed (cheap: one idle HTTP client); the config's
+        # enabled flag gates every prefill, so a SIGHUP can turn delta on
+        # without a restart.
+        self.delta = DeltaPlanner(
+            self.store, archive, self._tracker_client, self.delta_config
+        )
         self.scheduler = Scheduler(
             peer_id=peer_id,
             ip=self.host,
             port=self.p2p_port,
-            archive=AgentTorrentArchive(self.store, self.verifier),
+            archive=archive,
             metainfo_client=self._tracker_client,
             announce_client=self._tracker_client,
             config=self.scheduler_config,
             bandwidth=self.p2p_bandwidth,
+            delta=self.delta,
             pex=self.pex_config,
             peercache_path=os.path.join(self.store.root, "peercache.json"),
         )
@@ -1314,6 +1411,7 @@ class AgentNode:
                 on_corrupt=self._on_scrub_corrupt,
             )
             self.scrubber.start()
+        _sync_chunk_gc(self)
         if self.build_index_addr:
             from kraken_tpu_torch.buildindex.server import TagClient
             from kraken_tpu_torch.dockerregistry.registry import RegistryServer
@@ -1375,14 +1473,25 @@ class AgentNode:
             self.trace_config = parsed["trace"]
             _apply_trace("agent", self.trace_config, self.store.root)
         if "delta" in parsed:
+            # Live enable/disable + knob swap: the planner re-reads its
+            # config object on every prefill.
             self.delta_config = parsed["delta"]
+            if self.delta is not None:
+                self.delta.config = self.delta_config
         if "profiling" in parsed:
             self.profiling_config = _apply_profiling(
                 "agent", parsed["profiling"], self.store.root
             )
             _sync_loop_monitor(self, "agent")
         if "chunkstore" in parsed:
+            # Agents-first rollout: SIGHUP-enable attaches the tier and
+            # converts from the next completed pull on; disable stops
+            # new conversions, manifest-backed blobs keep serving.
             self.chunkstore_config = parsed["chunkstore"]
+            _sync_chunkstore(self)
+            _sync_chunk_gc(self)
+        if "delta" in parsed or "chunkstore" in parsed:
+            _log_tier_reload(self)
         if "slo" in parsed:
             self.slo_config = parsed["slo"]
             _apply_slo("agent", self.slo_config)
@@ -1419,6 +1528,9 @@ class AgentNode:
             self.loop_monitor.stop()
         if self.scrubber:
             self.scrubber.stop()
+        if self.chunk_gc:
+            self.chunk_gc.stop()
+            self.chunk_gc = None
         # The registry endpoint before the scheduler: no pull starts on a
         # scheduler that is stopping.
         if self._registry_runner:
@@ -1431,5 +1543,7 @@ class AgentNode:
             await self._tracker_client.close()
         if self._tag_client:
             await self._tag_client.close()
+        if self.delta:
+            await self.delta.close()
         # LAST: bound the next boot's fsck crash-window verify.
         await asyncio.to_thread(write_clean_shutdown, self.store)

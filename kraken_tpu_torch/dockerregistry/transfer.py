@@ -5,10 +5,7 @@ for agents: blobs via scheduler.Download, tags via build-index;
 ``ProxyTransferer`` for the proxy: blobs via origin cluster client, tag
 put + replicate) -- upstream path, unverified; SURVEY.md SS2.4.
 
-The port's copy of ``kraken_tpu.dockerregistry.transfer``. Every blob of
-the port's CAStore is flat (the chunk tier is ROADMAP A7f), so the agent's
-``download_path`` hands out the cache file; the export branch stays for a
-store that lacks it.
+The port's copy of ``kraken_tpu.dockerregistry.transfer``.
 """
 
 from __future__ import annotations

@@ -370,10 +370,19 @@ class DedupIndex:
             # mmap, not read(): CDC + chunk hashing walk the blob
             # sequentially, so the heap stays O(chunk) and the pages are
             # reclaimable file cache even for multi-GiB layers.
-            # The port's store is flat only: every blob is one file to map
-            # (the JAX package also reads chunk-backed blobs here).
             with self.store.open_cache_file(d) as f:  # KeyError if absent
-                if os.fstat(f.fileno()).st_size == 0:
+                try:
+                    fileno = f.fileno()
+                except OSError:
+                    # Chunk-backed blob (no single fd to mmap): rare --
+                    # a chunked blob normally HAS its sketch sidecar
+                    # (the recipe that chunked it came from one) -- so
+                    # buffering the composed read is acceptable here.
+                    record = self._compute_record(f.read())
+                    fileno = None
+                if fileno is None:
+                    pass
+                elif os.fstat(fileno).st_size == 0:
                     record = self._compute_record(b"")
                 else:
                     # Manual lifecycle, not `with`: a sampling profiler
@@ -491,9 +500,9 @@ class DedupIndex:
 
     def chunk_table(self, d: Digest) -> tuple[list[int], list[int]] | None:
         """The blob's persisted ``(fps, sizes)`` chunk table, or None
-        when no sketch sidecar exists -- the input of the JAX package's
-        chunk-tier conversion (``CAStore.convert_to_chunks``, not ported
-        yet), one derivation shared with the dedup ledger and the recipes."""
+        when no sketch sidecar exists -- what the origin's chunk-tier
+        conversion feeds ``CAStore.convert_to_chunks`` (one derivation
+        shared with the dedup ledger and the delta recipes)."""
         record = self._load_record(d)
         if record is None:
             return None

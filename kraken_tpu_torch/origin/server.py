@@ -8,9 +8,6 @@ The port's copy of ``kraken_tpu.origin.server``, served by the port's own
 HTTP/1.1 (``OriginServer(...).make_app()`` under ``utils/http_lite.serve``).
 Where it differs from the reference:
 
-- the ``/similar``, ``/recipe`` and ``/dedup/stats`` routes, and the chunk
-  tier's conversion after dedup, are not ported (ROADMAP A7f): the routes
-  answer 404; ``delta=`` other than None raises ``ValueError`` (A7f);
 - ``stream_piece_hash`` defaults to the generator's hasher: hashlib piece
   hashes at stream time only for the ``cpu`` hasher. A ``cuda`` origin
   hashes its pieces on the card: through the ingest pipeline's windows at
@@ -23,9 +20,14 @@ Endpoints:
     PATCH  /namespace/{ns}/blobs/{d}/uploads/{uid}          (X-Upload-Offset)
     PUT    /namespace/{ns}/blobs/{d}/uploads/{uid}/commit
     GET    /namespace/{ns}/blobs/{d}                        -> blob bytes
-                                                               (Range-capable)
+                                                               (Range-capable:
+                                                               delta need-span
+                                                               fetches ride it)
     GET    /namespace/{ns}/blobs/{d}/stat                   -> {"size": n}
     GET    /namespace/{ns}/blobs/{d}/metainfo               -> metainfo doc
+    GET    /namespace/{ns}/blobs/{d}/similar                -> near-dup list
+    GET    /namespace/{ns}/blobs/{d}/recipe                 -> chunk recipe
+    GET    /dedup/stats                                     -> corpus stats
     DELETE /namespace/{ns}/blobs/{d}
     GET    /health
 
@@ -482,7 +484,7 @@ class OriginServer(LameduckMixin):
         # None: hashlib at stream time only on ``cpu``-hasher origins.
         stream_piece_hash: bool | None = None,
         rpc=None,  # utils.deadline.RPCConfig (optional)
-        delta=None,  # not ported yet (ROADMAP A7f): must be None
+        delta=None,  # p2p.delta.DeltaConfig (optional; gates /recipe)
         ingest_pipeline=None,  # core.ingest.IngestPipeline (optional)
         # None: the ingest pipeline's config (IngestConfig.resume,
         # .serve_while_ingest), read live; with no pipeline, on and off.
@@ -490,11 +492,6 @@ class OriginServer(LameduckMixin):
         serve_while_ingest: bool | None = None,  # seed from the spool
         quorum: QuorumConfig | None = None,  # write-durability contract
     ):
-        if delta is not None:
-            raise ValueError(
-                "OriginServer(delta=...): p2p/delta.py and the /recipe route "
-                "are not ported yet (ROADMAP A7f)"
-            )
         if stream_piece_hash is None:
             # A card origin's pieces are hashed on the card; hashlib at
             # stream time would hide it (ROADMAP §C).
@@ -520,6 +517,15 @@ class OriginServer(LameduckMixin):
         # SIGHUP live-swaps (assembly.OriginNode.reload replaces this
         # object; the next commit reads the new knobs).
         self.quorum = quorum if quorum is not None else QuorumConfig()
+        # Delta-transfer plane (p2p/delta.py DeltaConfig): when enabled,
+        # GET .../recipe serves the blob's ordered CDC chunk table so
+        # agents can plan delta pulls. Shipped OFF; SIGHUP live-swaps
+        # (assembly.OriginNode.reload replaces this object).
+        if delta is None:
+            from kraken_tpu_torch.p2p.delta import DeltaConfig
+
+            delta = DeltaConfig()
+        self.delta_config = delta
         # Lameduck drain (utils/lameduck.py): /health fails, NEW upload
         # sessions are refused with 503+Retry-After; in-flight
         # PATCH/commit of existing sessions (and established p2p conns)
@@ -649,6 +655,9 @@ class OriginServer(LameduckMixin):
         r.add_post("/namespace/{ns}/blobs/{d}/adopt", self._adopt)
         r.add_get("/namespace/{ns}/blobs/{d}/stat", self._stat)
         r.add_get("/namespace/{ns}/blobs/{d}/metainfo", self._metainfo)
+        r.add_get("/namespace/{ns}/blobs/{d}/similar", self._similar)
+        r.add_get("/namespace/{ns}/blobs/{d}/recipe", self._recipe)
+        r.add_get("/dedup/stats", self._dedup_stats)
         r.add_get("/namespace/{ns}/blobs/{d}", self._download)
         r.add_delete("/namespace/{ns}/blobs/{d}", self._delete)
         r.add_get("/health", self._health)
@@ -1296,6 +1305,7 @@ class OriginServer(LameduckMixin):
             try:
                 with trace.span("origin.dedup.add", digest=d.hex[:12]):
                     await self.dedup.add_blob(d)
+                await self._maybe_convert_to_chunks(d)
             except DedupEvictionRace:
                 # Benign: eviction/DELETE won the race; the blob is gone
                 # and must not be indexed. Counted apart from real
@@ -1315,6 +1325,44 @@ class OriginServer(LameduckMixin):
         task = asyncio.create_task(run())
         self._dedup_tasks.add(task)
         task.add_done_callback(self._dedup_tasks.discard)
+
+    async def _maybe_convert_to_chunks(self, d: Digest) -> None:
+        """Origin-side chunk-tier handover (store/chunkstore.py): once
+        the dedup pass persisted the blob's chunk table, convert the
+        flat blob to manifest + refcounted chunks -- near-duplicate
+        builds then cost unique bytes at rest on the origin too. Gated
+        on ``chunkstore.enabled`` (origins opt in AFTER the agent soak
+        -- OPERATIONS.md runbook); every read/serve/replicate path is
+        chunk-aware, and a conversion failure just leaves the blob
+        flat."""
+        cs = getattr(self.store, "chunkstore", None)
+        if cs is None or not cs.config.enabled or self.dedup is None:
+            return
+        try:
+            if self.store.cache_size(d) < cs.config.min_blob_bytes:
+                return
+        except KeyError:
+            return
+        table = await asyncio.to_thread(self.dedup.chunk_table, d)
+        if table is None:
+            return
+        converts = REGISTRY.counter(
+            "chunkstore_converts_total",
+            "Completed pulls converted to manifest + refcounted chunks, "
+            "by outcome (converted / skipped / mismatch / error)",
+        )
+        res = await asyncio.to_thread(
+            self.store.convert_to_chunks, d, table[0], table[1]
+        )
+        if res is None:
+            converts.inc(outcome="mismatch")
+            return
+        converts.inc(outcome="converted")
+        _log.info(
+            "blob converted to chunk tier",
+            extra={"digest": d.hex, "new_bytes": res["new_bytes"],
+                   "dup_bytes": res["dup_bytes"]},
+        )
 
     # -- quorum write plane (sync push + hinted handoff) ---------------------
 
@@ -1977,9 +2025,12 @@ class OriginServer(LameduckMixin):
         d = self._digest(req)
         await self._ensure_local(ns, d)
         self._touch(d)
-        # One Range-capable streaming path (store/serve.py): the reader
-        # pins the fd, so an eviction racing this request can never
-        # 404/500 it. O(1) request memory for any blob size.
+        # One Range-capable streaming path over BOTH storage
+        # representations (store/serve.py): the reader opens the flat
+        # fd or the chunk manifest atomically, so a chunk-tier
+        # conversion racing this request can never 404/500 it. O(1)
+        # request memory for any blob size; the delta planner's
+        # need-span 206s serve from either representation.
         from kraken_tpu_torch.store.serve import blob_response
 
         return await blob_response(req, self.store, d)
@@ -2032,3 +2083,64 @@ class OriginServer(LameduckMixin):
             # re-replication routes around it -- no orchestration hook.
             raise self.drain_unavailable()
         return web.Response(text="ok")
+
+    async def _similar(self, req: web.Request) -> web.Response:
+        if self.dedup is None:
+            raise web.HTTPNotFound(text="dedup index disabled")
+        d = self._digest(req)
+        try:
+            k = int(req.query.get("k", "10"))
+            min_j = float(req.query.get("min_jaccard", "0.05"))
+        except ValueError:
+            raise web.HTTPBadRequest(text="malformed k/min_jaccard")
+        if k <= 0 or not 0.0 <= min_j <= 1.0:
+            raise web.HTTPBadRequest(text="k must be >0, min_jaccard in [0,1]")
+        try:
+            # Ensure this blob is indexed (sync path: cheap when the
+            # sidecar exists; chunks+sketches on first touch otherwise).
+            await asyncio.to_thread(self.dedup.add_blob_sync, d)
+            hits = await asyncio.to_thread(self.dedup.similar, d, k, min_j)
+        except KeyError:
+            raise web.HTTPNotFound(text="blob not found")
+        return web.json_response({"similar": hits})
+
+    async def _dedup_stats(self, req: web.Request) -> web.Response:
+        if self.dedup is None:
+            raise web.HTTPNotFound(text="dedup index disabled")
+        return web.json_response(self.dedup.stats())
+
+    async def _recipe(self, req: web.Request) -> web.Response:
+        """The blob's ordered CDC chunk table (core/metainfo.ChunkRecipe),
+        derived from the dedup plane's sketch sidecar -- recomputed via
+        the ChunkRouter on a sidecar miss. The delta planner's control
+        document; gated on ``delta.enabled`` (shipped off) so rollout is
+        an explicit origin-side decision."""
+        await self._brownout_gate()
+        ns = urllib.parse.unquote(req.match_info["ns"])
+        d = self._digest(req)
+        if self.dedup is None or not self.delta_config.enabled:
+            raise web.HTTPNotFound(text="delta recipes disabled")
+        served = REGISTRY.counter(
+            "origin_recipe_requests_total",
+            "Chunk-recipe requests by result (hit = served from the "
+            "sketch sidecar, recompute = re-chunked on miss)",
+        )
+        if failpoints.fire("origin.recipe.miss"):
+            # Chaos: a recipe plane that went dark (sidecar store fault)
+            # -- agents must degrade to the full pull, never fail it.
+            served.inc(result="miss")
+            raise web.HTTPNotFound(text="failpoint origin.recipe.miss")
+        await self._ensure_local(ns, d)
+        self._touch(d)  # a recipe fetch precedes an imminent delta pull
+        try:
+            recipe, had_sidecar = await asyncio.to_thread(
+                self.dedup.recipe_sync, d
+            )
+        except KeyError:
+            # Includes DedupEvictionRace: the blob raced away mid-derive.
+            served.inc(result="miss")
+            raise web.HTTPNotFound(text="blob not found")
+        served.inc(result="hit" if had_sidecar else "recompute")
+        return web.Response(
+            body=recipe.serialize(), content_type="application/json"
+        )

@@ -59,9 +59,9 @@ class WritebackExecutor:
         client = self.backends.get_client(namespace)
         # File-based: backends stream/multipart it (S3), or buffer via the
         # base-class default; either way writeback never holds a layer in
-        # RAM itself. The backend owns pathing. A blob whose flat file is
-        # gone at upload time is exported to a temporary copy in the
-        # upload spool, uploaded, and the copy dropped.
+        # RAM itself. The backend owns pathing. A chunk-backed blob has
+        # no flat path to hand over -- materialize a temporary flat copy
+        # in the upload spool (the export escape hatch), upload, drop it.
         path = self.store.cache_path(d)
         uploaded = False
         if os.path.exists(path):
@@ -69,9 +69,9 @@ class WritebackExecutor:
                 await client.upload_file(namespace, d.hex, path)
                 uploaded = True
             except FileNotFoundError:
-                # The file went away between the check and the backend's
-                # open: fall through to the export path, which raises if
-                # the blob is truly gone.
+                # A chunk-tier conversion unlinked the flat file between
+                # the check and the backend's open: fall through to the
+                # export path -- the bytes are fully readable.
                 pass
         if not uploaded:
             uid = self.store.create_upload()

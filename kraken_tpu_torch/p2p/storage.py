@@ -259,12 +259,25 @@ class Torrent:
 
     # -- pieces ------------------------------------------------------------
 
-    def _open_io(self) -> _FlatIO:
-        # O_RDWR while incomplete (piece writes land here); a committed
+    def _open_io(self):
+        """The torrent's IO handle: a raw fd on the backing file, or --
+        for a COMPLETE blob whose bytes live in the chunk tier -- a
+        composed :class:`~kraken_tpu_torch.store.chunkstore.ChunkReader`.
+        Both expose ``pread``; only the flat handle can ``pwrite``
+        (incomplete torrents always write into a flat ``.part``)."""
+        if self._status is None:
+            try:
+                fd = os.open(self._path, os.O_RDONLY)
+            except FileNotFoundError:
+                reader = self.store._chunk_reader(self.metainfo.digest)
+                if reader is None:
+                    raise
+                return reader
+            return _FlatIO(fd)
+        # Incomplete torrents own the file read-write; a complete cached
         # blob is read-only. Completion does not reopen: commit is a
         # rename, so the fd keeps addressing the same inode.
-        flags = os.O_RDONLY if self._status is None else os.O_RDWR
-        return _FlatIO(os.open(self._path, flags))
+        return _FlatIO(os.open(self._path, os.O_RDWR))
 
     def _with_fd(self, op):
         """Run ``op(io)`` (a pread/pwrite) with the handle ref-counted.

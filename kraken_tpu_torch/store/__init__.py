@@ -7,6 +7,7 @@ from kraken_tpu_torch.store.castore import (
     UploadNotFoundError,
 )
 from kraken_tpu_torch.store.metadata import (
+    ChunkManifestMetadata,
     Metadata,
     PieceStatusMetadata,
     register_metadata,
@@ -14,6 +15,7 @@ from kraken_tpu_torch.store.metadata import (
 
 __all__ = [
     "CAStore",
+    "ChunkManifestMetadata",
     "DigestMismatchError",
     "FileExistsInCacheError",
     "UploadNotFoundError",

@@ -26,12 +26,9 @@ Invariants:
 Thread-safety: a single process-wide lock guards directory-level races
 (concurrent commit of the same digest); data-plane reads/writes are lock-free.
 
-Only the flat tier is ported. The reference's chunk tier
-(``attach_chunkstore``, ``manifest``, ``is_chunked``, ``convert_to_chunks``,
-``materialize_flat``, ``evictable_bytes``; ROADMAP A7f) is not: every blob
-here is a flat file, as in a reference store with no chunk store attached.
-Scrub and recovery (A7e) are not ported either; the quarantine methods the
-origin's heal plane calls are.
+With a chunk store attached (``attach_chunkstore``), a blob may instead
+live in the chunk tier: a ``_md_chunk_manifest`` sidecar and no flat data
+file, its bytes in ``<root>/chunks/`` (``store/chunkstore.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +40,7 @@ import uuid as uuidlib
 from typing import BinaryIO, Iterator, Optional, Type, TypeVar
 
 from kraken_tpu_torch.core.digest import Digest
-from kraken_tpu_torch.store.metadata import Metadata
+from kraken_tpu_torch.store.metadata import ChunkManifestMetadata, Metadata
 from kraken_tpu_torch.utils import failpoints
 
 M = TypeVar("M", bound=Metadata)
@@ -89,12 +86,23 @@ class CAStore:
         self.upload_dir = os.path.join(root, "upload")
         self.cache_dir = os.path.join(root, "cache")
         # Corrupt blobs are MOVED here, never deleted: an operator can
-        # post-mortem the damaged bytes. Deliberately outside cache/:
-        # quarantined files are invisible to list_cache_digests.
+        # post-mortem the damaged bytes (store/scrub.py, store/recovery.py).
+        # Deliberately outside cache/: quarantined files are invisible to
+        # list_cache_digests and eviction, but still counted by
+        # disk_usage_bytes (they occupy real disk under the watermarks).
         self.quarantine_dir = os.path.join(root, "quarantine")
         os.makedirs(self.upload_dir, exist_ok=True)
         os.makedirs(self.cache_dir, exist_ok=True)
         self._lock = threading.Lock()
+        # Content-addressed chunk tier (store/chunkstore.py), attached by
+        # assembly when the ``chunkstore:`` config enables it OR when the
+        # tier directory already holds chunks (a node restarted with the
+        # knob turned off must keep serving its manifest-backed blobs).
+        # None = every blob is a flat file, exactly the pre-tier store.
+        self.chunkstore = None
+
+    def attach_chunkstore(self, chunkstore) -> None:
+        self.chunkstore = chunkstore
 
     def _commit_file(self, src: str, dst: str) -> None:
         """Move ``src`` into place at ``dst`` under the durability mode."""
@@ -202,7 +210,10 @@ class CAStore:
                 raise DigestMismatchError(f"expected {d}, got {actual}")
         dst = self.cache_path(d)
         with self._lock:
-            if os.path.exists(dst):
+            # in_cache, not a flat-path check: committing a flat copy
+            # over a chunk-BACKED blob would create the dual state fsck
+            # exists to repair.
+            if os.path.exists(dst) or self.is_chunked(d):
                 os.unlink(src)
                 self.delete_upload_session(uid)
                 raise FileExistsInCacheError(str(d))
@@ -337,6 +348,12 @@ class CAStore:
     def commit_partial_file(self, d: Digest) -> None:
         """Atomically promote a completed partial into the cache."""
         with self._lock:
+            if self.is_chunked(d):
+                # Already committed via the chunk tier: drop the partial
+                # (same benign race as a flat copy landing first).
+                with contextlib.suppress(FileNotFoundError):
+                    os.unlink(self.partial_path(d))
+                return
             if not os.path.exists(self.cache_path(d)):
                 os.makedirs(os.path.dirname(self.cache_path(d)), exist_ok=True)
                 self._commit_file(self.partial_path(d), self.cache_path(d))
@@ -351,32 +368,90 @@ class CAStore:
         with contextlib.suppress(FileNotFoundError):
             os.unlink(self.partial_path(d))
 
+    # -- chunk-tier state --------------------------------------------------
+
+    def _manifest_path(self, d: Digest) -> str:
+        return self._md_path(self.cache_path(d), ChunkManifestMetadata.name)
+
+    def manifest(self, d: Digest):
+        """The blob's chunk manifest, or None when it is stored flat OR
+        the sidecar is unreadable/rotted -- a corrupt manifest must read
+        as 'no healthy chunk-backed copy' (scrub quarantines it), never
+        abort the caller."""
+        if self.chunkstore is None:
+            return None
+        try:
+            return self.get_metadata(d, ChunkManifestMetadata)
+        except ValueError:
+            return None
+
+    def is_chunked(self, d: Digest) -> bool:
+        """True when the blob's bytes live in the chunk tier (manifest
+        sidecar present, no flat data file). A blob is EITHER flat or
+        chunked -- convert_to_chunks/materialize_flat move between the
+        states atomically enough that readers always find one."""
+        return (
+            self.chunkstore is not None
+            and not os.path.exists(self.cache_path(d))
+            and os.path.exists(self._manifest_path(d))
+        )
+
     # -- reads -------------------------------------------------------------
 
     def in_cache(self, d: Digest) -> bool:
-        return os.path.exists(self.cache_path(d))
+        # in_cache == committed: a flat file at the cache path, or a
+        # chunk-tier manifest (partials live at .part either way).
+        return os.path.exists(self.cache_path(d)) or self.is_chunked(d)
 
     def cache_size(self, d: Digest) -> int:
         try:
             return os.path.getsize(self.cache_path(d))
         except FileNotFoundError:
+            md = self.manifest(d) if self.is_chunked(d) else None
+            if md is not None:
+                return md.length
             raise KeyError(str(d)) from None
 
     def open_cache_file(self, d: Digest) -> BinaryIO:
-        """Readable handle on a committed blob."""
+        """Readable handle on a committed blob: the flat file, or a
+        file-like composed view over its chunks -- sequential consumers
+        (scrub, digest verify, metainfo generation, backend writeback)
+        need no tier awareness."""
         try:
             return open(self.cache_path(d), "rb")
         except FileNotFoundError:
+            reader = self._chunk_reader(d)
+            if reader is not None:
+                from kraken_tpu_torch.store.chunkstore import ChunkBackedIO
+
+                return ChunkBackedIO(reader)  # type: ignore[return-value]
             raise KeyError(str(d)) from None
 
-    def open_cache_reader(self, d: Digest) -> "FlatReader":
+    def _chunk_reader(self, d: Digest):
+        if not self.is_chunked(d):
+            return None
+        md = self.manifest(d)
+        if md is None:
+            return None
+        from kraken_tpu_torch.store.chunkstore import ChunkReader
+
+        return ChunkReader(self.chunkstore, md.fps, md.sizes)
+
+    def open_cache_reader(self, d: Digest):
         """Positional-read handle (``.pread(n, off)``/``.length``/
-        ``.close()``/``fileno()``) over a committed blob -- what the blob
-        serve path reads. KeyError if absent. The fd pins the bytes, so an
-        eviction after the open is harmless."""
+        ``.close()``) over a committed blob, flat or chunked -- the one
+        interface piece serves and delta base copies use so both storage
+        representations share a code path. KeyError if absent. Flat
+        readers expose ``fileno()``; chunk-backed ones raise
+        ``io.UnsupportedOperation`` there (no single fd exists)."""
+        from kraken_tpu_torch.store.chunkstore import FlatReader
+
         try:
             fd = os.open(self.cache_path(d), os.O_RDONLY)
         except FileNotFoundError:
+            reader = self._chunk_reader(d)
+            if reader is not None:
+                return reader
             raise KeyError(str(d)) from None
         return FlatReader(fd, os.fstat(fd).st_size)
 
@@ -404,18 +479,39 @@ class CAStore:
                 yield chunk
 
     def list_cache_digests(self) -> list[Digest]:
-        """Every committed blob, sorted by digest."""
         out = set()
-        for _dirpath, _dirnames, filenames in os.walk(self.cache_dir):
+        manifest_suffix = f"._md_{ChunkManifestMetadata.name}"
+        for dirpath, _dirnames, filenames in os.walk(self.cache_dir):
             for name in filenames:
                 if len(name) == 64 and "._md_" not in name:
                     out.add(name)
+                elif self.chunkstore is not None and name.endswith(
+                    manifest_suffix
+                ):
+                    # Chunk-backed blobs have no 64-hex data file; their
+                    # manifest sidecar is the committed marker.
+                    base = name[: -len(manifest_suffix)]
+                    if len(base) == 64:
+                        out.add(base)
         return sorted(Digest.from_hex(h) for h in out)
 
+    def _release_manifest_refs(self, d: Digest) -> None:
+        """Drop the chunk references a blob's manifest holds -- called
+        with the manifest sidecar still readable, BEFORE it is unlinked
+        or moved (the chunk-tier mirror of the dedup on_evict contract)."""
+        if self.chunkstore is None:
+            return
+        try:
+            md = self.get_metadata(d, ChunkManifestMetadata)
+        except ValueError:
+            return
+        if md is not None:
+            self.chunkstore.release_blob(md.fps, md.sizes)
+
     def delete_cache_file(self, d: Digest) -> None:
-        """Remove a committed blob and every metadata sidecar beside it."""
         path = self.cache_path(d)
         with self._lock:
+            self._release_manifest_refs(d)
             with contextlib.suppress(FileNotFoundError):
                 os.unlink(path)
             for md in self._metadata_paths(path):
@@ -441,16 +537,30 @@ class CAStore:
         with self._lock:
             os.makedirs(self.quarantine_dir, exist_ok=True)
             dst = self.quarantine_path(d)
-            try:
-                os.replace(src, dst)
-            except FileNotFoundError:
-                return None
+            chunked = self.is_chunked(d)
+            if chunked:
+                # No flat data file to move: the manifest sidecar IS the
+                # blob's cache-tree presence. Release its chunk refs
+                # (the corrupt chunk itself was quarantined separately
+                # by scrub/fsck), then move every sidecar -- in_cache
+                # flips False and the heal plane restores a flat copy.
+                self._release_manifest_refs(d)
+            else:
+                try:
+                    os.replace(src, dst)
+                except FileNotFoundError:
+                    return None
+            moved_manifest = None
             for md in self._metadata_paths(src):
                 with contextlib.suppress(FileNotFoundError):
                     q = os.path.join(
                         self.quarantine_dir, os.path.basename(md)
                     )
                     os.replace(md, q)
+                    if md.endswith(f"._md_{ChunkManifestMetadata.name}"):
+                        moved_manifest = q
+            if chunked:
+                return moved_manifest
             return dst
 
     def verify_cache_file(self, d: Digest) -> bool:
@@ -513,9 +623,71 @@ class CAStore:
         with contextlib.suppress(FileNotFoundError):
             os.unlink(self._md_path(self.cache_path(d), cls.name))
 
+    # -- chunk-tier conversion ---------------------------------------------
+
+    def convert_to_chunks(self, d: Digest, fps, sizes) -> dict | None:
+        """Move a committed FLAT blob into the chunk tier: admit its
+        chunks (each verified against the recipe fp as it is read -- a
+        recipe that disagrees with the bytes aborts the conversion and
+        the blob stays flat), write the manifest sidecar, then unlink
+        the flat file. Readers racing the unlink are safe: an fd opened
+        before it keeps the immutable bytes, and one opened after finds
+        the manifest. Returns ``{"new_bytes", "dup_bytes", "length"}``
+        or None when the blob is absent/already chunked/tier detached."""
+        from kraken_tpu_torch.store.chunkstore import ChunkCorruptError
+
+        if self.chunkstore is None or self.is_chunked(d):
+            return None
+        path = self.cache_path(d)
+        try:
+            fd = os.open(path, os.O_RDONLY)
+        except FileNotFoundError:
+            return None
+        try:
+            length = os.fstat(fd).st_size
+            if length != sum(int(s) for s in sizes):
+                # Stale recipe vs the committed bytes: not convertible.
+                return None
+
+            def read_chunk(_i: int, off: int, size: int) -> bytes:
+                return os.pread(fd, size, off)
+
+            try:
+                new_bytes, dup_bytes = self.chunkstore.add_blob(
+                    fps, sizes, read_chunk
+                )
+            except ChunkCorruptError:
+                # The recipe and the flat bytes disagree (stale sidecar,
+                # at-rest rot the recipe predates): keep the flat file
+                # -- it is still the verified CAS copy; scrub judges it.
+                return None
+            # Manifest write + flat unlink under the store lock, with a
+            # liveness re-check: delete_cache_file/eviction holds the
+            # same lock, so a delete racing this conversion either runs
+            # first (we see the flat file gone -> roll back the refs,
+            # no manifest is ever written for a dead blob) or runs
+            # after (it finds the manifest and releases the refs).
+            # Within the lock, manifest BEFORE unlink: a crash between
+            # the two leaves a dual-state blob fsck resolves (flat
+            # wins, refs released); the reverse order would strand
+            # refcounted chunks with no readable blob.
+            with self._lock:
+                if not os.path.exists(path):
+                    self.chunkstore.release_blob(fps, sizes)
+                    return None
+                self.set_metadata(d, ChunkManifestMetadata(fps, sizes))
+                with contextlib.suppress(FileNotFoundError):
+                    os.unlink(path)
+        finally:
+            os.close(fd)
+        return {
+            "new_bytes": new_bytes, "dup_bytes": dup_bytes, "length": length,
+        }
+
     def export_to_file(self, d: Digest, dst: str) -> None:
-        """Write a blob's bytes to ``dst`` (the writeback path's copy for a
-        blob whose cache file went away between its check and its open)."""
+        """Write a blob's bytes (flat or chunked) to ``dst`` -- the
+        materialize-to-flat escape hatch for consumers that need a real
+        file path (backend multipart writeback, sendfile serves)."""
         with self.open_cache_file(d) as f, open(dst, "wb") as out:
             while True:
                 chunk = f.read(_CHUNK)
@@ -523,44 +695,64 @@ class CAStore:
                     break
                 out.write(chunk)
 
+    def materialize_flat(self, d: Digest) -> bool:
+        """Convert a chunk-backed blob BACK to a flat file (tmp in the
+        upload area, atomic rename, manifest dropped, chunk refs
+        released). The escape hatch for paths that must hand a filesystem
+        path to the kernel (shardpool sendfile). Returns True when the
+        blob is flat afterwards."""
+        if not self.is_chunked(d):
+            return os.path.exists(self.cache_path(d))
+        uid = self.create_upload()
+        tmp = self._upload_path(uid)
+        try:
+            self.export_to_file(d, tmp)
+            with self._lock:
+                if os.path.exists(self.cache_path(d)):
+                    return True  # raced: someone else materialized
+                self._commit_file(tmp, self.cache_path(d))
+                self._release_manifest_refs(d)
+                with contextlib.suppress(FileNotFoundError):
+                    os.unlink(self._manifest_path(d))
+            return True
+        except OSError:
+            return False
+        finally:
+            with contextlib.suppress(FileNotFoundError):
+                os.unlink(tmp)
 
     def evictable_bytes(self, d: Digest) -> int:
-        """What evicting this blob would free: its flat size (the port's
-        store has no chunk tier, ROADMAP A7f). Raises ``KeyError`` when
-        the blob is not cached, as the reference does."""
+        """What evicting this blob would actually free: the flat size,
+        or -- chunk-backed -- only the bytes no OTHER manifest
+        references (store/chunkstore.py unique_bytes). The watermark
+        evictor's chunk-aware accounting: a delta base sharing most of
+        its chunks frees almost nothing, so evicting it buys no headroom
+        and the evictor can afford to keep it."""
         try:
             return os.path.getsize(self.cache_path(d))
         except FileNotFoundError:
-            raise KeyError(str(d)) from None
+            pass
+        md = self.manifest(d)
+        if md is None or self.chunkstore is None:
+            raise KeyError(str(d))
+        return self.chunkstore.unique_bytes(md.fps, md.sizes)
+
+    # -- maintenance -------------------------------------------------------
 
     def disk_usage_bytes(self) -> int:
-        """Bytes the store holds on disk: the cache tree PLUS quarantine.
-        Quarantined blobs are invisible to eviction (they are evidence),
-        but they are real disk -- excluding them would let watermark math
-        believe there is headroom while the volume fills."""
+        """Bytes the store holds on disk: the cache tree PLUS quarantine
+        PLUS the chunk tier. Quarantined blobs are invisible to eviction
+        (they are evidence, cleaned by operators), but they are real
+        disk -- excluding them would let watermark math believe there is
+        headroom while the volume fills toward ENOSPC. Same rule for the
+        chunk tier: a tier the evictor can't see can fill the volume
+        behind its back."""
         total = 0
         for root in (self.cache_dir, self.quarantine_dir):
             for dirpath, _dirnames, filenames in os.walk(root):
                 for name in filenames:
                     with contextlib.suppress(FileNotFoundError):
                         total += os.path.getsize(os.path.join(dirpath, name))
+        if self.chunkstore is not None:
+            total += self.chunkstore.stored_bytes()
         return total
-
-
-class FlatReader:
-    """Positional reads over one fd (the reference keeps this class in
-    ``store/chunkstore.py``, beside its chunk-tier twin)."""
-
-    def __init__(self, fd: int, length: int):
-        self._fd = fd
-        self.length = length
-
-    def pread(self, n: int, off: int) -> bytes:
-        return os.pread(self._fd, n, off)
-
-    def fileno(self) -> int:
-        return self._fd
-
-    def close(self) -> None:
-        with contextlib.suppress(OSError):
-            os.close(self._fd)

@@ -2,10 +2,7 @@
 
 The port's copy of ``kraken_tpu.store.cleanup``. Services call
 :meth:`CleanupManager.run_once` from a periodic asyncio task; the logic
-itself is synchronous and testable without a loop. The port's store has
-no chunk tier (ROADMAP A7f), so every blob is flat: a blob's age falls
-back to its data file's mtime, evicting it frees its size, and there is
-no chunk reaper to run under watermark pressure.
+itself is synchronous and testable without a loop.
 
 Policy, in order:
 1. evict blobs idle past ``tti_seconds`` (last access from TTIMetadata,
@@ -123,7 +120,14 @@ class CleanupManager:
             try:
                 persisted = os.path.getmtime(self.store.cache_path(d))
             except FileNotFoundError:
-                pass  # deleted under the sweep: eviction skips it
+                # Chunk-backed blob: no flat data file -- age from the
+                # manifest sidecar instead (written at conversion).
+                try:
+                    persisted = os.path.getmtime(
+                        self.store._manifest_path(d)
+                    )
+                except (OSError, AttributeError):
+                    pass
         return max(persisted, self._touched.get(d.hex, 0.0))
 
     def _evictable(self, d: Digest) -> bool:
@@ -201,7 +205,13 @@ class CleanupManager:
                     evicted.append(d)
                     entries.remove((d, last))
 
-        # 2. disk-pressure eviction, LRU order.
+        # 2. disk-pressure eviction, LRU order. Chunk-aware sizing:
+        # evicting a chunk-backed blob frees only its UNIQUE bytes
+        # (shared chunks stay referenced by other manifests), so the
+        # watermark math uses evictable_bytes, not the logical size --
+        # and a delta base that shares nearly everything buys no
+        # headroom, so the evictor naturally keeps it and moves on to
+        # blobs whose eviction actually frees disk.
         if cfg.high_watermark_bytes > 0:
             usage = self.store.disk_usage_bytes()
             if usage > cfg.high_watermark_bytes:
@@ -210,9 +220,16 @@ class CleanupManager:
                         break
                     try:
                         size = self.store.evictable_bytes(d)
-                    except KeyError:
+                    except (KeyError, AttributeError):
                         continue
                     self._evict(d)
                     evicted.append(d)
                     usage -= size
+                # Under watermark pressure the freed chunk bytes must
+                # become real NOW, not at the next budgeted GC pass --
+                # ENOSPC beats politeness (the GC loop stays budgeted
+                # for the steady state).
+                cs = getattr(self.store, "chunkstore", None)
+                if cs is not None:
+                    cs.gc_reap()
         return evicted

@@ -5,12 +5,12 @@ piece bitfield and only fetches missing pieces; the origin remembers a
 blob's namespace, its eviction pins and its last access. Each type
 serializes to bytes and lives at ``<data_path>._md_<name>`` -- the same
 file names and bytes as ``kraken_tpu.store.metadata``, so either package
-reads the other's sidecars. ``ChunkManifestMetadata`` is not ported yet
-(ROADMAP A7f).
+reads the other's sidecars.
 """
 
 from __future__ import annotations
 
+import struct
 import time
 from typing import Dict, Type
 
@@ -88,6 +88,67 @@ class PieceStatusMetadata(Metadata):
     def deserialize(cls, raw: bytes) -> "PieceStatusMetadata":
         n = int.from_bytes(raw[:4], "big")
         return cls(n, bytearray(raw[4:]))
+
+
+@register_metadata
+class ChunkManifestMetadata(Metadata):
+    """Chunk-tier manifest: the ordered ``(fp, size)`` table a blob is
+    stored as once the content-addressed chunk tier holds its bytes
+    (store/chunkstore.py). The presence of THIS sidecar -- with no flat
+    data file beside it -- is what marks a blob as chunk-backed:
+    ``CAStore.in_cache`` counts it, reads compose through a
+    :class:`~kraken_tpu_torch.store.chunkstore.ChunkReader`, and deleting the
+    blob releases one reference on every chunk listed here. Same packed
+    tables as ``core/metainfo.ChunkRecipe`` (big-endian u64 fps, u32
+    sizes; offsets implicit), one derivation shared with the dedup
+    ledger, so the manifest IS the recipe minus the JSON envelope."""
+
+    name = "chunk_manifest"
+
+    def __init__(self, fps, sizes):
+        self.fps = [int(fp) for fp in fps]
+        self.sizes = [int(s) for s in sizes]
+        if len(self.fps) != len(self.sizes):
+            raise ValueError("fps/sizes length mismatch")
+        for s in self.sizes:
+            if not 0 < s < 1 << 32:
+                raise ValueError(f"chunk size out of range: {s}")
+        self.length = sum(self.sizes)
+
+    def chunks(self):
+        """Yield ``(fp, offset, size)`` in blob order."""
+        off = 0
+        for fp, size in zip(self.fps, self.sizes):
+            yield fp, off, size
+            off += size
+
+    def serialize(self) -> bytes:
+        n = len(self.fps)
+        return (
+            struct.pack("<BI", 1, n)
+            + struct.pack(f">{n}Q", *self.fps)
+            + struct.pack(f">{n}I", *self.sizes)
+        )
+
+    @classmethod
+    def deserialize(cls, raw: bytes) -> "ChunkManifestMetadata":
+        try:
+            version, n = struct.unpack_from("<BI", raw, 0)
+            if version != 1:
+                raise ValueError(
+                    f"unsupported chunk manifest version: {version}"
+                )
+            off = struct.calcsize("<BI")
+            if len(raw) != off + 12 * n:
+                raise ValueError("truncated chunk manifest")
+            fps = struct.unpack_from(f">{n}Q", raw, off)
+            sizes = struct.unpack_from(f">{n}I", raw, off + 8 * n)
+        except struct.error as e:
+            # An empty/short sidecar (rename-durability power loss) must
+            # surface as the SAME ValueError contract every caller
+            # guards -- struct.error is not a ValueError subclass.
+            raise ValueError(f"malformed chunk manifest: {e}") from e
+        return cls(fps, sizes)
 
 
 @register_metadata

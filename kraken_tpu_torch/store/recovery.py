@@ -1,11 +1,7 @@
 """Startup fsck: reconcile a CAStore's on-disk tree after a crash.
 
-The port's copy of ``kraken_tpu.store.recovery``, the flat-store half:
-the chunk tier's pass (torn chunk writes, dual state, refcount rebuild,
-orphan chunks, manifest verify) waits for the chunk tier itself (ROADMAP
-A7f). The port's ``CAStore`` holds flat blobs only, so a store it fscks
-has no tier to pass over; :func:`run_fsck` says so in its log line when
-it finds the reference's ``chunks/`` directory in a store.
+The port's copy of ``kraken_tpu.store.recovery``, the chunk tier's pass
+included.
 
 The CAS invariant (a blob's identity IS its SHA-256) makes the store
 exactly checkable, but only commit ever verifies it -- a crash can leave
@@ -60,15 +56,12 @@ import time
 
 from kraken_tpu_torch.core.digest import Digest
 from kraken_tpu_torch.store.castore import CAStore
-from kraken_tpu_torch.store.metadata import NamespaceMetadata
+from kraken_tpu_torch.store.metadata import ChunkManifestMetadata, NamespaceMetadata
 from kraken_tpu_torch.utils import failpoints
 
 _log = logging.getLogger("kraken.recovery")
 
 _STAMP_NAME = "clean"
-# The reference's chunk-manifest sidecar name (its ChunkManifestMetadata,
-# not ported yet: ROADMAP A7f).
-_CHUNK_MANIFEST = "chunk_manifest"
 
 # Exit codes for `kraken-tpu fsck` (CI/deploy gates; docs/OPERATIONS.md).
 EXIT_CLEAN = 0
@@ -259,10 +252,6 @@ def run_fsck(
     # resumes. Not orphans; leave them for the resumed commit.
     live_uploads = store.live_upload_digests() if resume else set()
 
-    # The reference's chunk tier lives in <root>/chunks; the port reads
-    # its manifests as data files only so that fsck deletes none of them.
-    has_chunk_tier = os.path.isdir(os.path.join(store.root, "chunks"))
-
     stamp = read_clean_shutdown(store)
     if verify == "auto" and stamp is None:
         _log.info(
@@ -312,18 +301,19 @@ def run_fsck(
             # 2c. orphan sidecars: data file gone AND no resumable
             # partial beside it. (A sidecar next to a live ``.part`` is
             # the piece bitfield -- crash-resume depends on it.) A
-            # chunk-tier MANIFEST sidecar counts as the data file, as in
-            # the reference with a tier attached: a manifest-backed blob
-            # has no 64-hex flat file by design.
+            # chunk-tier MANIFEST sidecar counts as the data file: a
+            # manifest-backed blob has no 64-hex flat file by design,
+            # and deleting its sidecars would orphan the blob's chunks.
             if "._md_" in name:
                 base = name.split("._md_", 1)[0]
+                manifest = f"{base}._md_{ChunkManifestMetadata.name}"
                 if (
                     base not in present
                     and base not in live_uploads
                     and f"{base}.part" not in present
                     and not (
-                        has_chunk_tier
-                        and f"{base}._md_{_CHUNK_MANIFEST}" in present
+                        store.chunkstore is not None
+                        and manifest in present
                     )
                 ):
                     with contextlib.suppress(OSError):
@@ -377,15 +367,96 @@ def run_fsck(
                         "Blobs that failed at-rest content verification",
                     ).inc(source="fsck")
 
-    # 3. The chunk tier's pass waits for the tier (ROADMAP A7f): the
-    # port's store has none attached, so there is nothing to pass over.
-    if has_chunk_tier:
-        _log.warning(
-            "fsck: the store holds a chunk tier; its pass (torn chunk"
-            " writes, refcounts, orphan chunks, manifest verify) is not"
-            " ported yet (ROADMAP A7f) and was skipped",
-            extra={"store": store.root},
-        )
+    # 3. Chunk tier (store/chunkstore.py, when attached): torn chunk-
+    # write staging files, a dual-state repair (flat file AND manifest:
+    # a crash between convert_to_chunks' manifest write and flat unlink
+    # -- the self-contained flat copy wins, the manifest's refs
+    # release), refcount rebuild from the authoritative manifest set (a
+    # torn journal heals here), orphan-chunk reap (zero-ref after
+    # rebuild = garbage no manifest can reach), and crash-window verify
+    # of manifest-backed blobs -- a corrupt chunk is QUARANTINED (never
+    # deleted) and every blob referencing it reports unhealable so the
+    # heal plane re-fetches and re-chunks the verified bytes.
+    if store.chunkstore is not None:
+        cs = store.chunkstore
+        report._count("chunk_tmp", cs.sweep_tmp())
+        manifests: list[tuple] = []
+        chunked: list[tuple[Digest, object]] = []
+        for d in store.list_cache_digests():
+            try:
+                md = store.get_metadata(d, ChunkManifestMetadata)
+            except ValueError:
+                if os.path.exists(store.cache_path(d)):
+                    # Rotted manifest BESIDE a flat file (power loss
+                    # mid-convert): the intact flat bytes are
+                    # authoritative -- drop only the bad sidecar, same
+                    # verdict as the dual-state repair below.
+                    with contextlib.suppress(OSError):
+                        os.unlink(store._manifest_path(d))
+                    report._count("chunk_dual_state")
+                    continue
+                # Rotted/truncated manifest with no flat file: the blob
+                # has no readable representation. Quarantine the
+                # evidence and report unhealable -- one bad sidecar must
+                # not abort the whole pass (the recovery plane's first
+                # rule). Its chunks go orphan in the rebuild below and
+                # reap there.
+                if quarantine:
+                    with contextlib.suppress(OSError):
+                        store.quarantine_cache_file(d)
+                report._count("quarantined")
+                report.quarantined.append(d.hex)
+                continue
+            if md is None:
+                continue
+            if os.path.exists(store.cache_path(d)):
+                # Dual state: the flat bytes are authoritative (they
+                # were never unlinked); drop the manifest + its refs.
+                cs.release_blob(md.fps, md.sizes)
+                with contextlib.suppress(OSError):
+                    os.unlink(store._manifest_path(d))
+                report._count("chunk_dual_state")
+                continue
+            manifests.append((md.fps, md.sizes))
+            chunked.append((d, md))
+        # Orphans are chunk files the JOURNAL never knew about (a crash
+        # between chunk rename and journal fsync): discovered by the
+        # rebuild's disk walk. Journal-tracked zero-ref chunks are NOT
+        # orphans -- they are normal deletes awaiting the budgeted GC,
+        # and a healthy store must not read as "repaired" for having
+        # them.
+        known = cs.known_chunks()
+        report._count("chunk_refs_rebuilt", cs.rebuild_refs(manifests))
+        orphans = [k for k in cs.zero_ref_chunks() if k not in known]
+        for fp, size in orphans:
+            cs.gc_reap_one(fp, size)
+        report._count("orphan_chunk", len(orphans))
+        for d, md in chunked:
+            check = verify == "all" or (
+                verify == "auto"
+                and stamp is not None
+                and (_mtime(store._manifest_path(d)) or 0.0) > stamp
+            )
+            if not check:
+                continue
+            report.verified += 1
+            if _blob_matches(store, d):
+                continue
+            for fp, _off, size in md.chunks():
+                if not cs.verify_chunk(fp, size):
+                    with contextlib.suppress(OSError):
+                        cs.quarantine_chunk(fp, size)
+            if quarantine:
+                with contextlib.suppress(OSError):
+                    store.quarantine_cache_file(d)
+            report._count("quarantined")
+            report.quarantined.append(d.hex)
+            from kraken_tpu_torch.utils.metrics import REGISTRY
+
+            REGISTRY.counter(
+                "scrub_corruptions_total",
+                "Blobs that failed at-rest content verification",
+            ).inc(source="fsck")
 
     # Bump the stamp after a repairing pass: the window just examined is
     # clean (or quarantined) as of now. Without this, (a) a crash-LOOPING

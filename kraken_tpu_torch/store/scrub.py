@@ -1,8 +1,7 @@
 """Background integrity scrubber: re-verify at-rest blobs, quarantine rot.
 
 The port's copy of ``kraken_tpu.store.scrub`` (hashlib digests, as the
-reference). The port's store has no chunk tier (ROADMAP A7f), so every
-blob it scrubs is flat and a mismatch quarantines the blob whole.
+reference).
 
 Commit is the only moment the storage plane verifies content against the
 CAS invariant; after that, bit-rot or a torn crash-window write silently
@@ -118,8 +117,13 @@ class Scrubber:
             except (KeyError, FileNotFoundError):
                 if not self.store.in_cache(d):
                     continue  # evicted/deleted mid-scrub: nothing to judge
+                # Still cached yet unreadable: a chunk-backed blob whose
+                # chunk file vanished (quarantined by another blob's
+                # scrub, manual damage) -- at-rest loss, same verdict as
+                # EIO below.
                 _log.warning(
-                    "scrub: cached blob unreadable; treating as corrupt",
+                    "scrub: cached blob unreadable (missing chunk?); "
+                    "treating as corrupt",
                     extra={"digest": d.hex}, exc_info=True,
                 )
                 ok = False
@@ -135,6 +139,14 @@ class Scrubber:
                 ok = False
             if ok:
                 continue
+            if self.store.is_chunked(d):
+                # Chunk-backed blob: pinpoint the damage first. The
+                # corrupt chunk file moves to quarantine (NEVER deleted
+                # -- evidence), so every other manifest referencing it
+                # fails its next read/scrub too and heals the same way;
+                # the heal plane's re-fetch re-chunks the verified blob
+                # and rewrites the chunk bit-identically.
+                await asyncio.to_thread(self._quarantine_corrupt_chunks, d)
             # Read the namespace BEFORE quarantine moves the sidecar --
             # the heal plane re-fetches under it.
             md = await asyncio.to_thread(
@@ -172,6 +184,25 @@ class Scrubber:
             "scrub_cycles_total", "Completed full-store scrub passes"
         ).inc()
         return quarantined
+
+    def _quarantine_corrupt_chunks(self, d: Digest) -> int:
+        """Move aside every chunk of ``d`` whose bytes no longer hash to
+        its fp (worker thread; the blob-level verify already failed)."""
+        md = self.store.manifest(d)
+        cs = self.store.chunkstore
+        if md is None or cs is None:
+            return 0
+        moved = 0
+        for fp, _off, size in md.chunks():
+            if not cs.verify_chunk(fp, size):
+                try:
+                    if cs.quarantine_chunk(fp, size) is not None:
+                        moved += 1
+                except OSError as e:
+                    self._failures.record(
+                        f"chunk quarantine {fp:016x}-{size}", e
+                    )
+        return moved
 
     async def _verify(self, d: Digest) -> bool:
         if failpoints.fire("store.scrub.bitflip"):
@@ -216,7 +247,9 @@ class Scrubber:
 
 def _flip_bit(path: str) -> None:
     """Chaos helper: flip one bit mid-file ON DISK (store.scrub.bitflip).
-    Empty or absent files are left alone -- there is no bit to flip."""
+    Empty or absent files are left alone -- there is no bit to flip
+    (chunk-backed blobs have no flat file; their chaos tier flips a
+    chunk file directly, tests/test_chunkstore.py)."""
     if not os.path.exists(path):
         return
     size = os.path.getsize(path)

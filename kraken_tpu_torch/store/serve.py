@@ -1,17 +1,12 @@
-"""HTTP blob serving: the port's copy of ``kraken_tpu.store.serve``, over
-the port's own HTTP/1.1 (``utils/http_lite``).
+"""HTTP blob serving over both storage representations: the port's copy of
+``kraken_tpu.store.serve``, over the port's own HTTP/1.1 (``utils/http_lite``).
 
-``open_cache_reader`` opens the blob's fd once (an eviction after the
-open is harmless), and a Range-capable ``StreamResponse`` streams 1 MiB
-positional reads off-loop -- O(slice) memory for any blob size. The port
-store is flat only (the reference also serves chunk-backed blobs through
-the same reader interface; ROADMAP A7f).
-
-Supported Range forms (the single-range subset real clients and the
-delta planner's need-span fetches send): ``bytes=a-b``, ``bytes=a-``,
-``bytes=-n``. Multi-range or malformed headers fall back to a full 200
-(a valid server response to any Range request); unsatisfiable ranges
-get 416 with ``Content-Range: bytes */length``.
+One code path for flat AND chunk-backed blobs: ``open_cache_reader``
+picks the representation atomically (a flat open pins the fd -- the
+chunk-tier conversion unlinking the path mid-request is harmless; a
+miss falls to the manifest), and a Range-capable ``StreamResponse``
+streams 1 MiB positional reads off-loop -- O(slice) memory for any blob
+size.
 """
 
 from __future__ import annotations
@@ -53,7 +48,7 @@ def _parse_range(req: web.Request, length: int) -> tuple[int, int] | None | str:
 async def blob_response(
     req: web.Request, store, d
 ) -> web.StreamResponse:
-    """Serve blob ``d`` from ``store``. Raises
+    """Serve blob ``d`` from ``store``, flat or chunk-backed. Raises
     ``web.HTTPNotFound`` when the blob is in neither representation
     (callers already ensured presence; this covers eviction races)."""
     try:
@@ -86,10 +81,10 @@ async def blob_response(
             take = min(_SLICE, remaining)
             data = await asyncio.to_thread(reader.pread, take, off)
             if len(data) != take:
-                # The file was cut short under us: the transfer is
-                # already partially written -- abort the conn so the
-                # client sees a hard failure, never a short body that
-                # parses as truncated-but-complete.
+                # A chunk vanished mid-stream (quarantined under us):
+                # the transfer is already partially written -- abort the
+                # conn so the client sees a hard failure, never a short
+                # body that parses as truncated-but-complete.
                 raise ConnectionResetError("blob read truncated mid-serve")
             await resp.write(data)
             off += take

@@ -63,10 +63,12 @@ KNOWN_FAILPOINTS = frozenset({
     "origin.patch.close",
     "origin.patch.write",
     "origin.quorum.replica.partition",
+    "origin.recipe.miss",
     "origin.upload.resume",
     "p2p.conn.disconnect",
     "p2p.conn.recv.corrupt",
     "p2p.conn.send.delay",
+    "p2p.delta.base.evict",
     "p2p.pex.drop",
     "p2p.pex.flood",
     "rpc.brownout.slow",

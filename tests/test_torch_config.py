@@ -299,8 +299,6 @@ PLANE_VALUES = [
     ("resources", {"max_open_fds": 1024}, "A7e"),
     ("resources", {"drain_on_breach": True}, "A7e"),
     ("canary", {"enabled": True, "origins": "o:1"}, "A7e"),
-    ("delta", {"enabled": True}, "A7f"),
-    ("chunkstore", {"enabled": True}, "A7f"),
 ]
 
 
@@ -337,6 +335,45 @@ def test_a_value_that_turns_on_a_waiting_plane_is_refused_at_start_and_on_sighup
     assert n.trace_config.sample_rate != 0.5
 
 
+TIER_NODES = [(n, s) for n in ("agent", "origin") for s in ("delta", "chunkstore")]
+
+
+@pytest.mark.parametrize("node,section", TIER_NODES,
+                         ids=[f"{n}-{s}" for n, s in TIER_NODES])
+def test_delta_and_the_chunk_tier_turn_on_at_start_and_on_and_off_by_sighup(
+        tmp_path, node, section, caplog):
+    """``delta.enabled`` and ``chunkstore.enabled`` load and run on both
+    nodes (ROADMAP A7f), and a reload flips them live, as the
+    reference's does. Turning the tier on attaches it to the store; off
+    keeps it attached (its manifests stay readable) with conversions
+    stopped. A reload that raises still keeps the whole config."""
+    make = _agent if node == "agent" else _origin
+    on = make(tmp_path / "on", **{section: {"enabled": True}})
+    assert getattr(on, f"{section}_config").enabled
+    if section == "chunkstore":
+        assert on.store.chunkstore is not None
+        assert on.store.chunkstore.config.enabled
+    n = make(tmp_path / "live")
+    assert not getattr(n, f"{section}_config").enabled
+    assert n.store.chunkstore is None
+    with caplog.at_level("INFO", logger="kraken.assembly"):
+        n.reload({section: {"enabled": True}})
+    assert getattr(n, f"{section}_config").enabled
+    (rec,) = [r for r in caplog.records if r.getMessage() == "delta and chunk tier reloaded"]
+    assert getattr(rec, f"{section}_enabled") is True
+    if section == "chunkstore":
+        tier = n.store.chunkstore
+        assert tier is not None and tier.config.enabled
+    before = getattr(n, f"{section}_config")
+    with pytest.raises(ValueError, match="unknown"):
+        n.reload({section: {"enabled": False}, "rpc": {"no_such_knob": 1}})
+    assert getattr(n, f"{section}_config") is before
+    n.reload({section: {"enabled": False}})
+    assert not getattr(n, f"{section}_config").enabled
+    if section == "chunkstore":
+        assert n.store.chunkstore is tier and not tier.config.enabled
+
+
 @pytest.mark.parametrize("name", ["tpu", "tpu-sharded", "gpu"])
 def test_the_jax_hashers_are_refused_naming_the_ports(tmp_path, name):
     with pytest.raises(ValueError, match="'cpu'.*'cuda'" if name != "gpu" else "cpu"):
@@ -361,7 +398,9 @@ def test_the_nodes_default_to_the_card(monkeypatch, tmp_path):
 def test_the_observe_only_sentinel_and_the_prober_are_not_started(tmp_path, process_globals):
     """The shipped resources: and canary: sections load, and nothing of
     the planes that wait runs: no sentinel, no prober, no resource
-    gauges (ROADMAP §C)."""
+    gauges (ROADMAP §C). The shipped delta: and chunkstore: sections
+    (off) give the agent its planner, idle, and no chunk tier or reaper,
+    as in the reference."""
     import asyncio
 
     from kraken_tpu_torch.utils.metrics import REGISTRY
@@ -375,7 +414,9 @@ def test_the_observe_only_sentinel_and_the_prober_are_not_started(tmp_path, proc
         )
         await n.start()
         try:
-            return {k for k in vars(n) if k in ("sentinel", "canary", "delta", "chunk_gc")}
+            assert not n.delta.config.enabled and n.chunk_gc is None
+            assert n.store.chunkstore is None
+            return {k for k in vars(n) if k in ("sentinel", "canary")}
         finally:
             await n.stop()
 

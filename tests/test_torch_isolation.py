@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -139,6 +140,14 @@ with tempfile.TemporaryDirectory() as root:
     index = kt.DedupIndex(o, hasher=kt.CPUPieceHasher(), params=kt.CDCParams(64, 256, 1024), device="cpu")
     record = index.add_blob_sync(d2)
     assert index.similar(d2) == [] and index.stats()["blobs"] == 1
+    # The chunk tier: the indexed blob converted to manifest and chunks,
+    # read back through the composed reader.
+    import kraken_tpu_torch.p2p.delta
+    from kraken_tpu_torch.store.chunkstore import ChunkStore, ChunkStoreConfig
+    o.attach_chunkstore(ChunkStore(root + "/o/chunks", ChunkStoreConfig(enabled=True),
+                                   quarantine_dir=o.quarantine_dir))
+    assert o.convert_to_chunks(d2, *index.chunk_table(d2)) is not None
+    assert o.is_chunked(d2) and o.read_cache_file(d2) == blob2
     # The swarm: a port seeder and leecher over loopback, frames through
     # the port's own msgpack codec.
     peers = {}
@@ -407,3 +416,70 @@ def test_a_card_origin_does_not_piece_hash_with_hashlib_unless_asked(monkeypatch
     assert server._stream_piece_length == 2048
     assert card_calls == [] and hashlib_pieces == ["cpu"]
     assert mi2.serialize() == mi.serialize()
+
+
+def test_a_card_origins_dedup_and_chunk_conversion_hash_no_piece_with_hashlib(monkeypatch, tmp_path):
+    """A ``cuda`` origin (the kernels' plain versions here) with the chunk
+    tier on: the upload's pieces and the dedup pass's chunk fingerprints
+    go through the ``cuda`` hasher, and the only chunk-level hashlib is
+    the reference's own -- ``ChunkStore``'s check of each new chunk before
+    its rename (``_fp_of``), once a chunk. No piece hash runs through
+    hashlib (``CPUPieceHasher``, the ingest reroute, the stream-time piece
+    hash, ``verify_piece``)."""
+    import asyncio
+    import hashlib
+
+    from kraken_tpu_torch.ops.cdc import CDCParams
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.origin.dedup import DedupIndex
+    from kraken_tpu_torch.origin.server import OriginServer
+    from kraken_tpu_torch.store.chunkstore import ChunkStore, ChunkStoreConfig
+    from kraken_tpu_torch.utils import http_lite
+
+    calls = []
+    real = hashlib.sha256
+
+    def counted(*a, **kw):
+        f = sys._getframe(1)
+        calls.append((f.f_globals.get("__name__"), f.f_code.co_name))
+        return real(*a, **kw)
+
+    rows = []
+    hasher = kt.TorchPieceHasher(device="cpu")
+    orig_batch = hasher.hash_batch
+    monkeypatch.setattr(hasher, "hash_batch", lambda items: rows.append(len(items)) or orig_batch(items))
+    piece_calls = []
+    orig_pieces = hasher.hash_pieces
+    monkeypatch.setattr(hasher, "hash_pieces",
+                        lambda data, plen: piece_calls.append(len(data)) or orig_pieces(data, plen))
+    store = kt.CAStore(str(tmp_path / "o"))
+    store.attach_chunkstore(ChunkStore(str(tmp_path / "o" / "chunks"),
+                                       ChunkStoreConfig(enabled=True, min_blob_bytes=1),
+                                       quarantine_dir=store.quarantine_dir))
+    dedup = DedupIndex(store, hasher=hasher, params=CDCParams(256, 1024, 4096), device="cpu")
+    gen = kt.Generator(store, hasher=hasher, piece_lengths=kt.PieceLengthConfig(((0, 4096),)))
+    server = OriginServer(store, gen, dedup=dedup)
+    blob = bytes(np.random.default_rng(5).integers(0, 256, 24_000, dtype=np.uint8))
+    d = kt.Digest.from_bytes(blob)
+
+    async def main():
+        runner, port = await http_lite.serve(server.make_app(), "127.0.0.1", 0)
+        client = BlobClient(f"127.0.0.1:{port}")
+        try:
+            monkeypatch.setattr(hashlib, "sha256", counted)
+            await client.upload("ns", d, blob, chunk_size=5000)
+            await asyncio.gather(*server._dedup_tasks)
+        finally:
+            monkeypatch.setattr(hashlib, "sha256", real)
+            await client.close()
+            await runner.cleanup()
+
+    asyncio.run(main())
+    assert store.is_chunked(d) and store.read_cache_file(d) == blob
+    md = store.manifest(d)
+    assert piece_calls == [len(blob)]  # the pieces, in one batched pass at commit
+    assert rows == [len(md.fps)]  # the chunk fingerprints, in one batch
+    piece_sites = {"kraken_tpu_torch.core.hasher", "kraken_tpu_torch.core.ingest"}
+    assert not [c for c in calls if c[0] in piece_sites or c[1] == "verify_piece"], calls
+    chunk_calls = [c for c in calls if c[1] in ("_fp_of", "chunk_fp")]
+    assert chunk_calls == [("kraken_tpu_torch.store.chunkstore", "_fp_of")] * len(set(md.fps))

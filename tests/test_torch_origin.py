@@ -566,13 +566,20 @@ def test_stream_piece_hash_follows_the_generators_hasher(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [({"delta": object()}, "A7f"), ({"cleanup": object()}, "A7e")])
 def test_unported_wiring_is_refused_by_name(tmp_path, kw, item):
-    """``delta=`` waits for A7f and is refused by name. ``cleanup=``, which
-    A7e's first part brought (``store/cleanup.py``), is taken now, and the
-    origin touches the eviction clock on every read as the reference's
-    ``_touch`` does."""
+    """Wiring that waited for a later item is taken once the item lands.
+    ``delta=`` (A7f) is the origin's ``DeltaConfig``, which gates the
+    ``/recipe`` route, and defaults to the shipped (off) config as the
+    reference's does. ``cleanup=``, which A7e's first part brought
+    (``store/cleanup.py``), is taken, and the origin touches the
+    eviction clock on every read as the reference's ``_touch`` does."""
     if item == "A7f":
-        with pytest.raises(ValueError, match=item):
-            port_origin(tmp_path / "o", **kw)
+        from kraken_tpu_torch.p2p.delta import DeltaConfig
+
+        assert port_origin(tmp_path / "o", **kw).delta_config is kw["delta"]
+        assert port_origin(tmp_path / "d").delta_config == DeltaConfig()
+        assert jax_server.OriginServer(
+            jax_store.CAStore(str(tmp_path / "j")), None
+        ).delta_config.enabled is False
         return
     from kraken_tpu_torch.store.cleanup import CleanupManager
 
@@ -601,8 +608,9 @@ def test_unported_wiring_is_refused_by_name(tmp_path, kw, item):
 
 def test_dedup_runs_after_commit_and_its_routes_are_absent(tmp_path):
     """The post-commit dedup task indexes the blob (on the CPU here); the
-    ``/similar``, ``/recipe`` and ``/dedup/stats`` routes are A7f's and
-    answer 404, as the reference's do with no dedup index."""
+    ``/similar`` and ``/dedup/stats`` routes (A7f) answer from the index,
+    and ``/recipe`` is absent (404) while ``delta.enabled`` is off, as the
+    reference's; with no dedup index all three answer 404."""
     blob = blob_of(200_000, 13)
     d = Digest.from_bytes(blob)
 
@@ -618,19 +626,22 @@ def test_dedup_runs_after_commit_and_its_routes_are_absent(tmp_path):
             await asyncio.gather(*origin._dedup_tasks)
             stats = origin.dedup.stats()
             base = f"http://{addr}/namespace/ns/blobs/{d.hex}"
-            codes = [(await raw("GET", u))[0] for u in (
-                f"{base}/similar", f"{base}/recipe", f"http://{addr}/dedup/stats")]
-            with pytest.raises(HTTPError) as ei:
-                await c.similar(NS, d)
+            urls = (f"{base}/similar", f"{base}/recipe", f"http://{addr}/dedup/stats")
+            codes = [(await raw("GET", u))[0] for u in urls]
+            similar = await c.similar(NS, d)
             await c.delete(NS, d)
+            dedup, origin.dedup = origin.dedup, None
+            off = [(await raw("GET", u))[0] for u in urls]
+            origin.dedup = dedup
             await c.close()
-            return stats, codes, ei.value.status, origin.dedup.stats()
+            return stats, codes, similar, off, origin.dedup.stats()
         finally:
             await stop()
 
-    stats, codes, similar, after = asyncio.run(main())
+    stats, codes, similar, off, after = asyncio.run(main())
     assert stats["blobs"] == 1 and after["blobs"] == 0
-    assert codes == [404, 404, 404] and similar == 404
+    assert codes == [200, 404, 200] and similar == []
+    assert off == [404, 404, 404]
 
 
 def test_serve_while_ingest_publishes_from_the_spool_before_the_rename(tmp_path):

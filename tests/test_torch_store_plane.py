@@ -208,20 +208,27 @@ def test_fsck_repairs_a_store_the_other_package_wrote_as_the_reference_does(
 
 
 def test_fsck_leaves_the_references_chunk_manifests_alone(tmp_path, caplog):
-    """The port has no chunk tier (A7f): a manifest sidecar in a store
-    with the reference's chunks/ directory counts as the blob's data, and
-    the skipped pass is logged."""
+    """A store with the reference's ``chunks/`` directory gets the tier
+    attached (as a node does at start, ``assembly._sync_chunkstore``), and
+    fsck runs the chunk tier's pass over it as the reference's does: the
+    manifest sidecar counts as the blob's data and stays, the refcounts
+    are rebuilt from it, and nothing is logged as skipped."""
+    from kraken_tpu_torch.store.chunkstore import ChunkStore, ChunkStoreConfig
+
     s = port_store.CAStore(str(tmp_path / "s"))
     os.makedirs(os.path.join(s.root, "chunks"))
+    s.attach_chunkstore(ChunkStore(os.path.join(s.root, "chunks"), ChunkStoreConfig(),
+                                   quarantine_dir=s.quarantine_dir))
     d = port_digest.Digest.from_hex("12" * 32)
     os.makedirs(os.path.dirname(s.cache_path(d)), exist_ok=True)
     manifest = s.cache_path(d) + "._md_chunk_manifest"
     with open(manifest, "wb") as f:
-        f.write(b"\x01\x00\x00\x00\x00")
+        f.write(jax_metadata.ChunkManifestMetadata([], []).serialize())
     with caplog.at_level("WARNING", logger="kraken.recovery"):
         report = port_recovery.run_fsck(s)
     assert os.path.exists(manifest) and "orphan_sidecar" not in report.repairs
-    assert "A7f" in caplog.text
+    assert s.is_chunked(d) and s.list_cache_digests() == [d]
+    assert "A7f" not in caplog.text and "skipped" not in caplog.text
 
 
 def test_fsck_orphan_failpoint_plants_and_repairs(tmp_path):

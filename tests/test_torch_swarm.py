@@ -404,7 +404,20 @@ def test_the_shipped_scheduler_sections_load_and_workers_stay_refused():
 def test_a_pull_reports_its_plane_split_while_the_profiler_runs(tmp_path, monkeypatch):
     """The dispatcher baselines a pull against the running sampler's
     cumulative plane counts; the completed pull's summary carries the
-    delta, and the sampler stops when asked."""
+    delta, and the sampler stops when asked.
+
+    Two things are made sure of rather than left to timing. A node
+    started in-process by another test of the same worker leaves the
+    process-global sampler running, and its samples go into the same
+    ``profiler_samples_total``: it is stopped for the test's length.
+    And the pull is held open (every send delayed through the
+    ``p2p.conn.send.delay`` failpoint) until the sampler has taken a
+    sample after the dispatcher's baseline."""
+    from kraken_tpu_torch.utils import failpoints
+
+    stray = port_profiler.PROFILER
+    stray_was_running = stray.running
+    stray.stop()
     prof = port_profiler.SamplingProfiler(port_profiler.ProfilerConfig.from_dict({"hz": 250.0}))
     monkeypatch.setattr(port_profiler, "PROFILER", prof)
     samples = REGISTRY.counter("profiler_samples_total")
@@ -421,8 +434,19 @@ def test_a_pull_reports_its_plane_split_while_the_profiler_runs(tmp_path, monkey
         await start_all(seeder, leecher)
         try:
             seeder.seed(mi, NS)
-            await asyncio.sleep(0.05)  # at least one sample before the pull
-            await asyncio.wait_for(leecher.download(NS, mi.digest), 15)
+            failpoints.FAILPOINTS.arm("p2p.conn.send.delay", "always+delay:20")
+            pull = asyncio.ensure_future(leecher.download(NS, mi.digest))
+            try:
+                async with asyncio.timeout(15):
+                    while not leecher._controls:
+                        await asyncio.sleep(0.005)
+                    (ctl,) = leecher._controls.values()
+                    base = sum(ctl.dispatcher._plane0.values())
+                    while sum(prof.plane_cumulative().values()) <= base:
+                        await asyncio.sleep(0.005)
+            finally:
+                failpoints.FAILPOINTS.disarm("p2p.conn.send.delay")
+            await asyncio.wait_for(pull, 15)
             assert lstore.read_cache_file(mi.digest) == blob
         finally:
             await stop_all(seeder, leecher)
@@ -433,6 +457,8 @@ def test_a_pull_reports_its_plane_split_while_the_profiler_runs(tmp_path, monkey
         asyncio.run(main())
     finally:
         prof.stop()
+        if stray_was_running:
+            stray.start()
     assert not prof.running
     (summary,) = [e for e in events.events if e["name"] == "torrent_summary"]
     split = summary["plane_split"]
