@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs sixteen phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs seventeen phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -262,13 +262,39 @@ without a result:
    (plan, copy, recheck, fetch, write), the rest being the swarm; each
    tier's stored and logical bytes; a SIGHUP turning A's delta off, read
    on its log; SIGTERM drains.
+17. ``operator`` -- the operator's plane on phase 14's herd: tracker,
+   origin and agent as three CLI processes started together, ``--hasher
+   cuda``, the agent's canary probing the origin every 2 s (the shipped
+   256 KiB blob), its shipped observe-only ``resources:`` and a 1 s SLO
+   evaluation. (a) The canary alone: three probes recorded good
+   (``slo_events_total{canary="1",result="good"}``), each launching
+   kernels at the origin and the agent; each probe's pull latency from
+   its document on ``/debug/slo``. (b) 1 GiB uploaded and pulled through
+   the agent, byte-identical with its SHA-256 = its digest, while the
+   agent's ``/debug/torch-profile`` captures 10 s of it: the trace must
+   name ``sha256_rows_kernel``, no more times than the wrappers counted
+   launches across the capture; the kernel's summed time over the
+   capture's wall is the card's busy share during a pull; a second
+   capture meanwhile answers 409; the canary probes that ran during the
+   pull, with their latency. (c) Every node's ``/debug/`` lists the
+   mux's routes (``torch-profile``, no ``jax-profile``); ``/debug/slo``,
+   ``/debug/resources`` and the breakers of ``/debug/healthcheck`` have
+   the reference's keys; ``http_requests_total`` has the agent's blob
+   route under its template and no label holds a 64-hex digest. (d)
+   ``status`` over the three exits 0; ``trace`` over the three nodes'
+   spans of the last probe (``/debug/trace?view=trace``) joins them and
+   exits 0; ``flame`` over the agent's ``/debug/pprof/profile`` exits 0
+   with a verify plane. (e) SIGTERM: the agent exits 0 having reaped
+   every canary blob from the origin and its state file; then the
+   origin, and ``status`` over tracker and origin exits 2 naming the
+   origin alone; then the tracker.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
 swarm leg and the tracker phase's pulls, and each seeder's metainfo; each
-leg of phase 13; phase 14's, 15's and 16's children, through their
+leg of phase 13; phase 14's to 17's children, through their
 ``/metrics``) and
 read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
@@ -1849,16 +1875,18 @@ HERD_WINDOW = 64 * MiB  # the shipped ingest.window_bytes and the gear pass's wi
 class HerdChild:
     """One ``python -m kraken_tpu_torch.cli`` child: its READY document,
     its time to READY, its stderr in a file. With ``wait=False`` the
-    caller starts several and then calls ``wait_ready`` on each."""
+    caller starts several and then calls ``wait_ready`` on each. ``env``
+    adds to the environment it inherits."""
 
-    def __init__(self, root: str, name: str, args: list[str], wait: bool = True):
+    def __init__(self, root: str, name: str, args: list[str], wait: bool = True,
+                 env: dict | None = None):
         self.name = name
         self.err_path = os.path.join(root, f"{name}.stderr")
         self._t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "kraken_tpu_torch.cli", *args],
             stdout=subprocess.PIPE, stderr=open(self.err_path, "w"), cwd=REPO, text=True,
-            env=dict(os.environ, PYTHONPATH=str(REPO)),
+            env=dict(os.environ, PYTHONPATH=str(REPO), **(env or {})),
         )
         self._ready = threading.Event()
         self._ready_at = 0.0
@@ -2784,6 +2812,359 @@ def delta_phase(root: str, card_name_power: str) -> dict:
             c.stop(kill=True)
 
 
+# -- phase 17, the operator's plane ---------------------------------------------
+# Tracker, origin and agent as in phase 14, the agent with its canary probing
+# the origin every OPERATOR_CANARY_S (the shipped 256 KiB blob), the shipped
+# observe-only resources: and a 1 s SLO evaluation. The user pull is phase
+# 14's 1 GiB, profiled through the agent's /debug/torch-profile while it runs.
+OPERATOR_NS = "library/operator"
+OPERATOR_BLOB = GiB
+OPERATOR_CANARY_S = 2.0
+OPERATOR_PROBES = 3
+OPERATOR_PROFILE_S = 10.0
+OPERATOR_PULL_LEAD_S = 3.0  # into the pull before the capture starts
+OPERATOR_TIMEOUT_S = 300.0
+ROWS_KERNEL_NAME = "sha256_rows_kernel"
+# The debug mux every node serves (the reference's, torch-profile in place of
+# jax-profile).
+MUX_ROUTES = ("/metrics", "/debug", "/debug/", "/debug/slo", "/debug/trace",
+              "/debug/healthcheck", "/debug/resources", "/debug/stacks",
+              "/debug/pprof/profile", "/debug/pprof/heap", "/debug/pprof/looplag",
+              "/debug/torch-profile", "/debug/failpoints")
+SLO_KEYS = {"node", "enabled", "eval_interval_seconds", "windows", "firing", "last_eval",
+            "canary"}
+RESOURCES_KEYS = {"process", "sentinels"}
+BREAKER_KEYS = {"kind", "fail_threshold", "cooldown_seconds", "brownout_threshold_seconds",
+                "hosts"}
+_HEX64 = re.compile(r'="[^"]*[0-9a-f]{64}[^"]*"')
+
+
+def get_json(addr: str, path: str, timeout: float = 60.0):
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def cli_tool(args: list[str], timeout: float = 120.0) -> tuple[int, str]:
+    """``python -m kraken_tpu_torch.cli <args>``: its exit code and stdout
+    (its stderr goes to this process's)."""
+    proc = subprocess.run([sys.executable, "-m", "kraken_tpu_torch.cli", *args],
+                          stdout=subprocess.PIPE, text=True, cwd=REPO, timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    return proc.returncode, proc.stdout
+
+
+def launches_of(text: str) -> dict:
+    """Every ``kernel_launches_total{kernel}`` sample of an exposition."""
+    got = {}
+    for line in text.splitlines():
+        if line.startswith('kernel_launches_total{kernel="'):
+            got[line.split('"')[1]] = float(line.rsplit(" ", 1)[1])
+    return got
+
+
+def launch_rise(before: str, after: str) -> dict:
+    b, a = launches_of(before), launches_of(after)
+    return {k: a[k] - b.get(k, 0.0) for k in a if a[k] - b.get(k, 0.0)}
+
+
+class ProbeLog:
+    """Every canary probe document the agent's /debug/slo shows, by
+    sequence number, polled on a thread."""
+
+    def __init__(self, addr: str, every: float = 0.25):
+        self.addr, self.every = addr, every
+        self.probes: dict[int, dict] = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.every):
+            try:
+                doc = get_json(self.addr, "/debug/slo", 10.0).get("canary")
+            except OSError:
+                continue
+            if doc and doc.get("seq") is not None:
+                self.probes[doc["seq"]] = doc
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(10.0)
+
+    def good(self) -> list[dict]:
+        return [p for _s, p in sorted(self.probes.items()) if p.get("result") == "ok"]
+
+
+def operator_phase(root: str, card_name_power: str) -> dict:
+    """Phase 17: the canary, the debug mux, /debug/torch-profile during a
+    user pull, the status/trace/flame tools, clean stops. Returns the
+    numbers and the children's counters that the kernels line carries."""
+    from kraken_tpu_torch import Digest
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+
+    children: list[HerdChild] = []
+    probes = None
+    hasher = ["--hasher", HERD_HASHER]
+    try:
+        t_port, o_port = free_ports(2)
+        t_addr, o_addr = f"127.0.0.1:{t_port}", f"127.0.0.1:{o_port}"
+        a_extra = (f"canary:\n  enabled: true\n  origins: {o_addr}\n"
+                   f"  interval_seconds: {OPERATOR_CANARY_S}\n"
+                   "slo:\n  eval_interval_seconds: 1.0\n")
+        specs = [
+            ("tracker", "", ["--port", str(t_port), "--origins", o_addr]),
+            ("origin", "", ["--port", str(o_port), "--tracker", t_addr, *hasher]),
+            ("agent", a_extra, ["--tracker", t_addr, *hasher]),
+        ]
+        profile_dir = os.path.join(root, "torchprof")
+        for name, extra, flags in specs:
+            cfg = herd_config(root, name, extra)
+            children.append(HerdChild(root, name, [name, "--config", cfg, *flags], wait=False,
+                                      env={"KRAKEN_PROFILE_DIR": profile_dir}))
+        for c in children:
+            c.wait_ready()
+        tracker, origin, agent = children
+        ready = {c.name: c.ready_s for c in children}
+        emit({"phase": "operator", "ready_s": ready,
+              "addrs": {c.name: c.addr for c in children}, "card": card_name_power})
+        start_o, start_a = origin.metrics(), agent.metrics()
+
+        # (a) The canary alone: OPERATOR_PROBES good probes, recorded as
+        # canary traffic, each one's pull on the card at both ends.
+        probes = ProbeLog(agent.addr)
+        good_sli = {"canary": "1", "result": "good", "sli": "pull"}
+        t0 = time.perf_counter()
+        while delta(start_a, agent.metrics(), "slo_events_total", **good_sli) < OPERATOR_PROBES:
+            if time.perf_counter() - t0 > 60.0:
+                raise AssertionError("operator: the canary recorded no "
+                                     f"{OPERATOR_PROBES} good probes in 60 s: {probes.probes}"
+                                     + agent.log()[-3000:])
+            time.sleep(0.25)
+        canary_s = time.perf_counter() - t0
+        o_a, a_a = origin.metrics(), agent.metrics()
+        alone = {"origin": launch_rise(start_o, o_a), "agent": launch_rise(start_a, a_a)}
+        if not sum(alone["origin"].values()) or not sum(alone["agent"].values()):
+            raise AssertionError(f"operator: a canary probe launched nothing: {alone}")
+        alone_probes = [{"seq": p["seq"], "pull_s": p["stages"].get("pull_s"),
+                         "upload_s": p["stages"].get("upload_s")} for p in probes.good()]
+        emit({"phase": "operator", "leg": "a", "what": "canary alone",
+              "probes_good": delta(start_a, a_a, "slo_events_total", **good_sli),
+              "wall_s": canary_s, "probes": alone_probes, "launches": alone,
+              "card": card_name_power})
+
+        # (b) A user pull of 1 GiB, profiled through the agent's mux.
+        blob = np.random.default_rng(SEED + 170).bytes(OPERATOR_BLOB)
+        d = Digest.from_bytes(blob)
+        url = f"http://{agent.addr}/namespace/{quote(OPERATOR_NS, safe='')}/blobs/{d.hex}"
+
+        async def pull_under_profile() -> dict:
+            client = BlobClient(origin.addr, HTTPClient(retries=0))
+            try:
+                t_up = time.perf_counter()
+                await asyncio.wait_for(client.upload(OPERATOR_NS, d, blob,
+                                                     chunk_size=ORIGIN_CHUNK), OPERATOR_TIMEOUT_S)
+                upload_s = time.perf_counter() - t_up
+            finally:
+                await client.close()
+            timeout = http_lite.ClientTimeout(total=OPERATOR_TIMEOUT_S)
+            async with http_lite.ClientSession(timeout=timeout) as session:
+                async def pull():
+                    t = time.perf_counter()
+                    async with session.get(url) as resp:
+                        head = time.perf_counter() - t
+                        body = await resp.read()
+                    return resp.status, body, head, time.perf_counter() - t, t
+
+                task = asyncio.ensure_future(pull())
+                await asyncio.sleep(OPERATOR_PULL_LEAD_S)
+                k0 = await asyncio.to_thread(agent.metrics)
+                prof_url = f"http://{agent.addr}/debug/torch-profile?dir={quote(profile_dir)}"
+                t_cap = time.perf_counter()
+                capture = asyncio.ensure_future(
+                    session.get(f"{prof_url}&seconds={OPERATOR_PROFILE_S}"))
+                await asyncio.sleep(1.0)
+                async with session.get(f"{prof_url}&seconds=1") as second:
+                    second_status = second.status
+                    await second.read()
+                async with await capture as resp:
+                    cap_status, cap_body = resp.status, await resp.read()
+                cap_s = time.perf_counter() - t_cap
+                k1 = await asyncio.to_thread(agent.metrics)
+                status, body, head, wall, t_pull = await task
+            return {"upload_s": upload_s, "status": status, "body": body, "head_s": head,
+                    "pull_s": wall, "t_pull": t_pull, "k0": k0, "k1": k1,
+                    "cap_status": cap_status, "cap_body": cap_body, "cap_s": cap_s,
+                    "second_status": second_status, "t_cap": t_cap}
+
+        t_pull0 = time.time()
+        r = asyncio.run(pull_under_profile())
+        t_pull1 = time.time()
+        if r["status"] != 200 or r["body"] != blob:
+            raise AssertionError(f"operator: the pull answered {r['status']} and is not "
+                                 "byte-identical")
+        if hashlib.sha256(r["body"]).hexdigest() != d.hex:
+            raise AssertionError("operator: the pull's SHA-256 is not its digest")
+        if r["cap_status"] != 200:
+            raise AssertionError(f"operator: torch-profile answered {r['cap_status']}: "
+                                 f"{r['cap_body'][:2000]!r}")
+        cap = json.loads(r["cap_body"])
+        rows_events = {k: v for k, v in cap["kernels"].items() if ROWS_KERNEL_NAME in k}
+        rows_count = sum(rows_events.values())
+        rows_busy_s = sum(v for k, v in cap["kernel_seconds"].items() if ROWS_KERNEL_NAME in k)
+        # The card's busy share: the kernel's time over the window the
+        # trace itself spans (its session event), not the answer's wall,
+        # which adds the profiler's start and its stop and export.
+        window_s = cap["trace_window_seconds"] or cap["traced_seconds"]
+        busy_share = rows_busy_s / window_s
+        rise = launch_rise(r["k0"], r["k1"])
+        wrapper_rise = rise.get("sha256_ragged", 0.0) + rise.get("sha256_uniform", 0.0)
+        if not rows_count:
+            raise AssertionError(f"operator: the capture names no {ROWS_KERNEL_NAME}: "
+                                 f"{cap['kernels']}")
+        if rows_count > wrapper_rise:
+            raise AssertionError(f"operator: the trace holds {rows_count} launches of "
+                                 f"{ROWS_KERNEL_NAME}, the wrappers counted {wrapper_rise}")
+        if r["second_status"] != 409:
+            raise AssertionError(f"operator: a second capture answered {r['second_status']}")
+        under = [{"seq": p["seq"], "pull_s": p["stages"].get("pull_s"),
+                  "result": p["result"]} for p in probes.probes.values()
+                 if t_pull0 <= p["ts"] <= t_pull1]
+        trace_kb = os.path.getsize(cap["trace_file"]) / 1024
+        emit({"phase": "operator", "leg": "b", "what": "1 GiB user pull under torch-profile",
+              "blob_bytes": OPERATOR_BLOB, "upload_s": r["upload_s"], "pull_s": r["pull_s"],
+              "swarm_pull_s": r["head_s"], "gbps": OPERATOR_BLOB / r["pull_s"] / 1e9,
+              "capture_seconds": cap["seconds"], "capture_wall_s": cap["wall_seconds"],
+              "traced_s": cap["traced_seconds"], "trace_window_s": cap["trace_window_seconds"],
+              "capture_answer_s": r["cap_s"], "trace_kib": trace_kb,
+              "rows_kernel_events": rows_count, "rows_kernel_busy_s": rows_busy_s,
+              "busy_share": busy_share,
+              "busy_share_of_wall": rows_busy_s / cap["wall_seconds"],
+              "wrapper_launches_across_capture": rise, "kernels_in_trace": cap["kernels"],
+              "canary_probes_during_pull": under, "second_capture_status": r["second_status"],
+              "checks": ["pull byte-identical, SHA-256 = digest",
+                         f"trace names {ROWS_KERNEL_NAME}",
+                         "its events <= the wrappers' launches across the capture",
+                         "a second capture during the first answered 409"],
+              "card": card_name_power})
+
+        # (c) The mux.
+        for c in children:
+            index = get_json(c.addr, "/debug/")
+            missing = [p for p in MUX_ROUTES if p not in index["surfaces"]]
+            if missing or "/debug/jax-profile" in index["surfaces"]:
+                raise AssertionError(f"operator: {c.name}'s /debug/ lacks {missing}: {index}")
+            if set(get_json(c.addr, "/debug/slo")) != SLO_KEYS:
+                raise AssertionError(f"operator: {c.name}'s /debug/slo keys")
+            if set(get_json(c.addr, "/debug/resources")) != RESOURCES_KEYS:
+                raise AssertionError(f"operator: {c.name}'s /debug/resources keys")
+            for name, snap in get_json(c.addr, "/debug/healthcheck").items():
+                if snap.get("kind") == "breaker" and set(snap) != BREAKER_KEYS:
+                    raise AssertionError(f"operator: {c.name}'s breaker {name}: {snap}")
+        texts = {c.name: c.metrics() for c in children}
+        blob_route = metric(texts["agent"], "http_requests_total", component="agent",
+                            endpoint="/namespace/{ns}/blobs/{d}", method="GET", status="200")
+        hex_labels = {n: _HEX64.findall(t) for n, t in texts.items() if _HEX64.findall(t)}
+        if blob_route < 1 or hex_labels:
+            raise AssertionError(f"operator: blob route count {blob_route}, digests in "
+                                 f"labels {hex_labels}")
+        series = sum(1 for t in texts.values() for line in t.splitlines()
+                     if line.startswith("http_requests_total{"))
+        emit({"phase": "operator", "leg": "c", "what": "the debug mux",
+              "agent_blob_route_requests": blob_route, "http_requests_series": series,
+              "surfaces": len(index["surfaces"]), "card": card_name_power})
+
+        # (d) The tools, as an operator runs them.
+        nodes = ",".join(c.addr for c in children)
+        status_rc, status_out = cli_tool(["status", "--nodes", nodes])
+        if status_rc != 0:
+            raise AssertionError(f"operator: status exited {status_rc}:\n{status_out}")
+        last = probes.good()[-1]
+        dumps = []
+        for c in children:
+            spans = get_json(c.addr, f"/debug/trace?view=trace&trace_id={last['trace_id']}")
+            path = os.path.join(root, f"trace-{c.name}.jsonl")
+            with open(path, "w") as f:
+                f.writelines(json.dumps(s) + "\n" for s in spans["spans"])
+            dumps.append(path)
+        trace_rc, trace_out = cli_tool(["trace", "--trace-id", last["trace_id"], *dumps])
+        head = trace_out.splitlines()[0] if trace_out else ""
+        if trace_rc != 0 or "nodes=agent,origin,tracker" not in head:
+            raise AssertionError(f"operator: trace exited {trace_rc}:\n{trace_out[-3000:]}")
+        prof = get_json(agent.addr, "/debug/pprof/profile?format=json")
+        profile_path = os.path.join(root, "profile-agent.jsonl")
+        with open(profile_path, "w") as f:
+            f.write(json.dumps({"profile": "debug_pprof", "node": "agent",
+                                "stacks": len(prof["stacks"]), "planes": prof["planes"]}) + "\n")
+            f.writelines(json.dumps({"node": "agent", "stack": s, "count": n}) + "\n"
+                         for s, n in prof["stacks"])
+        flame_rc, flame_out = cli_tool(["flame", "--top", "5", profile_path])
+        flame_done = json.loads(flame_out.strip().splitlines()[-1]) if flame_rc == 0 else {}
+        if flame_rc != 0 or not flame_done.get("planes", {}).get("verify"):
+            raise AssertionError(f"operator: flame exited {flame_rc}:\n{flame_out[-3000:]}")
+        emit({"phase": "operator", "leg": "d", "what": "status, trace, flame",
+              "status_exit": status_rc, "status": status_out.strip().splitlines()[-1],
+              "trace_exit": trace_rc, "trace_head": head, "flame_exit": flame_rc,
+              "flame_planes": flame_done["planes"],
+              "flame_plane_pct_busy": flame_done["plane_pct_busy"], "card": card_name_power})
+
+        # (e) Clean stops. The agent first, while the origin is up: its
+        # stop reaps every canary blob it seeded, on both sides.
+        async def origin_has(digests) -> list[str]:
+            http = HTTPClient(retries=0)
+            left = []
+            try:
+                for hx in digests:
+                    try:
+                        await http.get(f"http://{origin.addr}/namespace/kraken-canary/blobs/"
+                                       f"{hx}/stat", retry_5xx=False)
+                        left.append(hx)
+                    except Exception:
+                        pass
+            finally:
+                await http.close()
+            return left
+
+        probes.stop()
+        end_o, end_a = origin.metrics(), agent.metrics()
+        seeded = sorted({p["digest"] for p in probes.probes.values()})
+        if not asyncio.run(origin_has(seeded)):
+            raise AssertionError("operator: no canary blob seen on the origin before the stop")
+        rcs = {"agent": agent.stop()}
+        children.remove(agent)
+
+        left_origin = asyncio.run(origin_has(seeded))
+        with open(os.path.join(root, "agent", "canary-state.json")) as f:
+            state_live = json.load(f)["live"]
+        if rcs["agent"] != 0 or left_origin or state_live:
+            raise AssertionError(f"operator: agent exit {rcs['agent']}, canary blobs left on "
+                                 f"the origin {left_origin}, in the state {state_live}")
+        rcs["origin"] = origin.stop()
+        children.remove(origin)
+        down_rc, down_out = cli_tool(["status", "--nodes", f"{tracker.addr},{origin.addr}"])
+        summary = json.loads(down_out.strip().splitlines()[-1]) if down_out.strip() else {}
+        if down_rc != 2 or summary.get("unreachable") != [origin.addr]:
+            raise AssertionError(f"operator: status after the origin stopped exited "
+                                 f"{down_rc}:\n{down_out}")
+        rcs["tracker"] = tracker.stop()
+        children.clear()
+        if any(rcs.values()):
+            raise AssertionError(f"operator: exit codes {rcs}")
+        emit({"phase": "operator", "leg": "e", "what": "clean stops",
+              "exit_codes": rcs, "canary_blobs_seeded": len(seeded),
+              "canary_blobs_left_on_origin": len(left_origin),
+              "status_after_origin_stop": summary, "card": card_name_power})
+        phase = {"origin": launch_rise(start_o, end_o), "agent": launch_rise(start_a, end_a)}
+        return {"ready_s": ready, "pull_s": r["pull_s"], "launches": phase,
+                "busy_share": busy_share}
+    finally:
+        if probes is not None:
+            probes.stop()
+        for c in children:
+            c.stop(kill=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3624,6 +4005,23 @@ def main() -> int:
         raise AssertionError(f"delta: this process launched kernels: {own.read()}")
     dc = dlt["counters"]
 
+    # -- 17. operator: the canary, the mux, torch-profile, the tools -------
+    gc.collect()
+    work.mkdir(exist_ok=True)
+    operator_start = time.perf_counter()
+    own.reset()
+    try:
+        op = operator_phase(tempfile.mkdtemp(dir=work), card.name_power)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    operator_secs = time.perf_counter() - operator_start
+    if any(own.read().values()):
+        raise AssertionError(f"operator: this process launched kernels: {own.read()}")
+
+    def operator_launches(name: str) -> dict:
+        """Phase 17's launches of one wrapper, by process."""
+        return {proc: op["launches"][proc].get(name, 0) for proc in ("origin", "agent")}
+
     def delta_launches(name: str) -> dict:
         """Phase 16's launches of one wrapper, by process."""
         return {"origin": dc["origin_launches"][name], "agent_a": dc["a_launches"][name],
@@ -3656,6 +4054,7 @@ def main() -> int:
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_uniform"],
          "tracker_launches": fleet["launches"]["sha256_uniform"],
          "origin_http_launches": origin_launches("sha256_uniform"), "delta_launches": delta_launches("sha256_uniform"),
+         "operator_launches": operator_launches("sha256_uniform"),
          "herd_launches": {"origin": hc["origin_launches"]["sha256_uniform"],
                            "agent": hc["agent_launches"]["sha256_uniform"]},
          "herd_origin_ingest_windows": hc["origin_ingest_windows"],
@@ -3671,6 +4070,8 @@ def main() -> int:
          "tracker_metainfo_launches": fleet["metainfo_launches"]["sha256_ragged"],
          "tracker_launches": fleet["launches"]["sha256_ragged"],
          "origin_http_launches": origin_launches("sha256_ragged"), "delta_launches": delta_launches("sha256_ragged"),
+         "operator_launches": operator_launches("sha256_ragged"),
+         "operator_pull_busy_share": op["busy_share"],
          "herd_launches": {"origin": hc["origin_launches"]["sha256_ragged"],
                            "agent": hc["agent_launches"]["sha256_ragged"]},
          "herd_verify_batches": hc["agent_cuda_batches"],
@@ -3689,6 +4090,7 @@ def main() -> int:
          "ms": pack_ms, "plain_ms": pack_plain_ms, "bound_ms": pack_bound_ms,
          "bound_by": pack_bound_by, "library_ms": pack_library_ms,
          "origin_http_launches": origin_launches("pack_tiles_device"), "delta_launches": delta_launches("pack_tiles_device"),
+         "operator_launches": operator_launches("pack_tiles_device"),
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 4 MiB"},
         {"name": "sha256_packed_tiles", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -3698,6 +4100,7 @@ def main() -> int:
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 16 KiB",
          "ms_at_plain_shape": packed16_ms,
          "origin_http_launches": origin_launches("sha256_packed_tiles"), "delta_launches": delta_launches("sha256_packed_tiles"),
+         "operator_launches": operator_launches("sha256_packed_tiles"),
          **sha_entry(packed_main, PACKED_KERNEL)},
         {"name": "gear_candidates", "kernel": GEAR_KERNEL, "route": "cuda",
          "source": "kraken_tpu_torch/csrc/gear.cu",
@@ -3708,6 +4111,7 @@ def main() -> int:
          "bytes_bound_ms": gear_leg["bytes_bound_ms"], "library_ms": gear_library_ms,
          "sass_per_byte": gear_sass,
          "origin_http_launches": origin_launches("gear_candidates"), "delta_launches": delta_launches("gear_candidates"),
+         "operator_launches": operator_launches("gear_candidates"),
          "herd_launches": {"origin": hc["origin_launches"]["gear_candidates"],
                            "agent": hc["agent_launches"]["gear_candidates"]},
          "front_door_launches": {"origin": fc["origin_launches"]["gear_candidates"],
@@ -3718,7 +4122,8 @@ def main() -> int:
         {"name": "transpose_only", "route": "cuda", "source": "kraken_tpu_torch/csrc/transpose.cu",
          "replaces": "bench_transpose.py:80", "launches": main_launches["transpose_only"],
          "relayout_launches": relayout_launches,
-         "origin_http_launches": origin_launches("transpose_only"), "delta_launches": delta_launches("transpose_only"), "max_abs_err": t_err,
+         "origin_http_launches": origin_launches("transpose_only"), "delta_launches": delta_launches("transpose_only"),
+         "operator_launches": operator_launches("transpose_only"), "max_abs_err": t_err,
          "ms": full["transpose_only_ms"], "plain_ms": full["transpose_only_plain_ms"],
          "bound_ms": t_bound["bound_ms"], "bound_by": t_bound["bound_by"], "library_ms": None,
          "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
@@ -3727,7 +4132,7 @@ def main() -> int:
         "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
         "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,
         "herd_seconds": herd_secs, "front_door_seconds": front_secs,
-        "delta_seconds": delta_secs,
+        "delta_seconds": delta_secs, "operator_seconds": operator_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

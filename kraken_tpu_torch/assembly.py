@@ -16,15 +16,21 @@ one node per process; tests run several per process. Config keys follow the comp
   are hashed on the card while the upload streams in. The origin's
   ``OriginServer`` reads ``resume`` and ``serve_while_ingest`` from that
   pipeline's config, live.
-- The planes that wait for later items are configured but not started:
-  the resource sentinel and the canary prober (A7e). Their config
-  classes refuse a value that would turn them on (``ValueError`` naming
-  the key and the item), at start and on SIGHUP alike. The delta planner
-  and the chunk tier run as in the reference, on and off by SIGHUP. The
-  multi-core data plane's worker counts are refused by
-  ``SchedulerConfig`` (A7g).
-- Every app serves ``GET /metrics`` (``instrument_app``); the
-  per-endpoint middleware waits for A7e.
+- The operator's plane runs as in the reference: every app carries the
+  per-endpoint middleware and the debug mux (``instrument_app``; a
+  ``cuda`` node's ``/debug/torch-profile`` traces the card), the origin
+  and the agent their resource sentinel, the agent its canary prober,
+  each on and off by SIGHUP. The multi-core data plane's worker counts
+  are refused by ``SchedulerConfig`` (A7g).
+- Every node's ``stop()`` leaves the process as it found it for what the
+  node started: the SLO evaluator and the sampler if its own ``apply``
+  started them, its loop-lag monitor, sentinel and prober, ``tracemalloc``
+  if its mux's ``/debug/pprof/heap`` started it, and a
+  ``/debug/torch-profile`` capture still running on its mux. The
+  reference's nodes leave the evaluator running and the sampler
+  sampling. The tracer, the sampler and the SLO manager stay
+  process-global, and while nodes run, the last-started node's sections
+  win.
 - The build-index and the proxy do no device work, in the reference
   either: they load no kernel library and make no CUDA context. The
   agent's registry endpoint stops before its scheduler, so no pull starts
@@ -85,12 +91,17 @@ from kraken_tpu_torch.tracker.peerstore import InMemoryPeerStore, RedisPeerStore
 from kraken_tpu_torch.tracker.server import TrackerServer
 from kraken_tpu_torch.utils import failpoints, http_lite
 from kraken_tpu_torch.utils.bandwidth import BandwidthLimiter
-from kraken_tpu_torch.utils.canary import CanaryConfig
+from kraken_tpu_torch.utils.canary import CanaryConfig, CanaryProber
 from kraken_tpu_torch.utils.deadline import RPCConfig
 from kraken_tpu_torch.utils.httputil import HTTPClient, base_url
-from kraken_tpu_torch.utils.metrics import REGISTRY, FailureMeter, instrument_app
+from kraken_tpu_torch.utils.metrics import (
+    REGISTRY,
+    FailureMeter,
+    instrument_app,
+    release_app,
+)
 from kraken_tpu_torch.utils.profiler import PROFILER, LoopLagMonitor, ProfilerConfig
-from kraken_tpu_torch.utils.resources import ResourcesConfig
+from kraken_tpu_torch.utils.resources import ResourcesConfig, ResourceSentinel
 from kraken_tpu_torch.utils.slo import SLO, SLOConfig
 from kraken_tpu_torch.utils.trace import TRACER, TraceConfig
 
@@ -286,30 +297,62 @@ def _sync_ingest(node) -> None:
         node.ingest_pipeline.apply(node.ingest_config)
 
 
-def _apply_slo(component: str, cfg: SLOConfig) -> None:
+def _apply_slo(node, component: str, cfg: SLOConfig) -> None:
     """Apply a node's ``slo:`` section to the process-global SLO manager
     (one per process, like the TRACER; in-process herds share it and the
-    last-started node wins)."""
+    last-started node wins). The evaluator thread follows the enabled
+    flag; the node owns it when this call started it, and stops it in
+    its own stop()."""
+    was_running = SLO.running
     SLO.node = component
     SLO.apply(cfg)
+    if not SLO.running:
+        node._owns_slo = False
+    elif not was_running:
+        node._owns_slo = True
 
 
-def _apply_profiling(component: str, cfg: ProfilerConfig,
+def _apply_profiling(node, component: str, cfg: ProfilerConfig,
                      store_root: str = "") -> ProfilerConfig:
     """Apply a node's ``profiling:`` section to the process-global
     sampler (one per process, like the TRACER). An empty ``dump_dir``
     defaults beside the trace dumps under the node's store root;
     store-less nodes (tracker) skip file captures unless a dir is set.
     Also registers the tracer's dump-trigger hook: every flight-recorder
-    trigger captures a profile window too."""
+    trigger captures a profile window too. The node owns the sampler
+    when this call started it, and stops it in its own stop()."""
     if not cfg.dump_dir and store_root:
         cfg = dataclasses.replace(
             cfg, dump_dir=os.path.join(store_root, "traces")
         )
+    was_running = PROFILER.running
     PROFILER.node = component
     PROFILER.apply(cfg)
     TRACER.on_trigger = PROFILER.trigger_capture
+    if not PROFILER.running:
+        node._owns_sampler = False
+    elif not was_running:
+        node._owns_sampler = True
     return cfg
+
+
+async def _release_process_globals(node, *runners) -> None:
+    """What a node's stop() owes the process: the SLO evaluator and the
+    sampler if the node started them, ``tracemalloc`` if its mux's
+    ``/debug/pprof/heap`` started it, and a ``/debug/torch-profile``
+    capture still running on its mux (waited for off the loop). The
+    reference's nodes leave the first two running; in a CLI process
+    nothing tells, in a process that runs one node after another it
+    decides what the next one sees."""
+    if getattr(node, "_owns_slo", False):
+        SLO.stop()
+        node._owns_slo = False
+    if getattr(node, "_owns_sampler", False):
+        PROFILER.stop()
+        node._owns_sampler = False
+    for runner in runners:
+        if runner is not None:
+            await asyncio.to_thread(release_app, runner.app)
 
 
 def _apply_trace(component: str, cfg: TraceConfig,
@@ -329,8 +372,11 @@ def _sync_loop_monitor(node, component: str) -> None:
     """Bring a node's LoopLagMonitor in line with its profiling config
     -- at start AND on SIGHUP reload, so enabling profiling live starts
     the heartbeat and disabling stops it (knob changes apply in
-    place)."""
+    place). Keeps the sentinel's loop_lag probe pointed at the live
+    monitor (or None), so the ``loop_lag`` budget follows the toggle
+    too."""
     cfg = node.profiling_config
+    sentinel = getattr(node, "sentinel", None)
     if cfg.enabled and node.loop_monitor is None:
         try:
             asyncio.get_running_loop()
@@ -343,6 +389,52 @@ def _sync_loop_monitor(node, component: str) -> None:
         node.loop_monitor = None
     elif node.loop_monitor is not None:
         node.loop_monitor.apply(cfg)
+    if sentinel is not None:
+        sentinel.loop_lag_probe = (
+            node.loop_monitor.p99 if node.loop_monitor is not None else None
+        )
+
+
+def _start_sentinel(node, component: str) -> ResourceSentinel:
+    """Build, register, and start a node's resource sentinel. The
+    sustained-breach hook enters lameduck (idempotent, non-blocking):
+    /health flips to 503, the deploy system observes and SIGTERMs for
+    the full drain+stop -- the same operator contract as
+    POST /debug/lameduck."""
+
+    def shed(kinds: list[str]) -> None:
+        REGISTRY.counter(
+            "resource_breach_drains_total",
+            "Lameduck drains entered by the resource sentinel",
+        ).inc(component=component)
+        if node.server is not None:
+            node.server.enter_lameduck()
+        elif node.scheduler is not None:
+            node.scheduler.enter_lameduck()
+
+    monitor = getattr(node, "loop_monitor", None)
+    sentinel = ResourceSentinel(
+        component,
+        node.resources_config,
+        scheduler=node.scheduler,
+        store=node.store,
+        upload_ttl_seconds=(
+            node.cleanup.config.upload_ttl_seconds
+            if node.cleanup is not None else 6 * 3600
+        ),
+        on_sustained_breach=shed,
+        # The loop-lag monitor's recent p99 feeds the `loop_lag` budget:
+        # a wedged event loop drains like any other resource breach.
+        loop_lag_probe=monitor.p99 if monitor is not None else None,
+        # The persistedretry Manager's per-kind pending counts feed the
+        # `retry_queue_depth` gauge and the `retry_queue` budget.
+        retry_probe=(
+            node.retry.queue_depths
+            if getattr(node, "retry", None) is not None else None
+        ),
+    )
+    sentinel.start()
+    return sentinel
 
 
 async def _drain_node(server, scheduler, timeout: float,
@@ -380,14 +472,23 @@ async def _drain_node(server, scheduler, timeout: float,
     )
 
 
+def _profile_device(hasher) -> str:
+    """Where a node's kernels run: ``cuda`` for a hasher on the card
+    (its ``/debug/torch-profile`` traces the card), else ``cpu``."""
+    device = getattr(hasher, "device", None)
+    return "cuda" if getattr(device, "type", None) == "cuda" else "cpu"
+
+
 async def _serve(app: http_lite.Application, host: str, port: int,
-                 component: str = "", ssl_context=None):
+                 component: str = "", ssl_context=None,
+                 profile_device: str = "cpu"):
     # Chaos guard: refuse to bind a listener while failpoints are armed
     # without the explicit acknowledgement (utils/failpoints.py).
     failpoints.FAILPOINTS.assert_safe(component or "node")
     if component:
-        # GET /metrics on every component app.
-        instrument_app(app, component)
+        # Per-endpoint latency/status metrics, GET /metrics and the debug
+        # mux on every component app.
+        instrument_app(app, component, profile_device=profile_device)
     return await http_lite.serve(app, host, port, ssl_context=ssl_context)
 
 
@@ -417,6 +518,8 @@ class TrackerNode:
         self.profiling_config = _config(ProfilerConfig, profiling)
         self.slo_config = _config(SLOConfig, slo)
         self.loop_monitor: Optional[LoopLagMonitor] = None
+        # Process globals this node started (stopped by its stop()).
+        self._owns_slo = self._owns_sampler = False
         peer_store = (
             RedisPeerStore(redis_addr, ttl_seconds=peer_ttl_seconds)
             if redis_addr
@@ -444,9 +547,9 @@ class TrackerNode:
     async def start(self) -> None:
         _apply_trace("tracker", self.trace_config)
         self.profiling_config = _apply_profiling(
-            "tracker", self.profiling_config
+            self, "tracker", self.profiling_config
         )
-        _apply_slo("tracker", self.slo_config)
+        _apply_slo(self, "tracker", self.slo_config)
         _sync_loop_monitor(self, "tracker")
         self._runner, self.port = await _serve(
             self.server.make_app(), self.host, self.port, "tracker",
@@ -477,12 +580,12 @@ class TrackerNode:
             _apply_trace("tracker", self.trace_config)
         if cfg.get("profiling") is not None:
             self.profiling_config = _apply_profiling(
-                "tracker", _config(ProfilerConfig, cfg["profiling"])
+                self, "tracker", _config(ProfilerConfig, cfg["profiling"])
             )
             _sync_loop_monitor(self, "tracker")
         if cfg.get("slo") is not None:
             self.slo_config = _config(SLOConfig, cfg["slo"])
-            _apply_slo("tracker", self.slo_config)
+            _apply_slo(self, "tracker", self.slo_config)
         if cfg.get("rpc") is None:
             return
         self.rpc = _config(RPCConfig, cfg["rpc"])
@@ -515,9 +618,11 @@ class TrackerNode:
             self._refresh_task.cancel()
         if self.loop_monitor:
             self.loop_monitor.stop()
+            self.loop_monitor = None
         if self._runner:
             await self._runner.cleanup()
         await self.server.close()
+        await _release_process_globals(self, self._runner)
 
 
 class OriginNode:
@@ -579,8 +684,7 @@ class OriginNode:
         self.chunkstore_config = _config(ChunkStoreConfig, chunkstore)
         self.chunk_gc: Optional[ChunkGC] = None
         _sync_chunkstore(self)
-        # A plane that waits (A7e): its section loads, and a value that
-        # would turn it on raises here, before anything starts.
+        # Resource sentinel budgets (YAML `resources:`; live-reloadable).
         self.resources_config = _config(ResourcesConfig, resources)
         # Delta-transfer plane (p2p/delta.py): the origin serves chunk
         # recipes on GET .../recipe when enabled (shipped OFF); SIGHUP
@@ -662,6 +766,9 @@ class OriginNode:
         self.slo_config = _config(SLOConfig, slo)
         self.quorum_config = _config(QuorumConfig, quorum)
         self.loop_monitor: Optional[LoopLagMonitor] = None
+        self.sentinel: Optional[ResourceSentinel] = None
+        # Process globals this node started (stopped by its stop()).
+        self._owns_slo = self._owns_sampler = False
         self.scrubber: Optional[Scrubber] = None
         self.fsck_report = None
         self.monitor: Optional[ActiveMonitor] = None
@@ -716,9 +823,9 @@ class OriginNode:
         await asyncio.to_thread(_load_kernels, self.generator.hasher)
         _apply_trace("origin", self.trace_config, self.store.root)
         self.profiling_config = _apply_profiling(
-            "origin", self.profiling_config, self.store.root
+            self, "origin", self.profiling_config, self.store.root
         )
-        _apply_slo("origin", self.slo_config)
+        _apply_slo(self, "origin", self.slo_config)
         _sync_loop_monitor(self, "origin")
         # Startup fsck BEFORE any listener binds.
         if self.fsck_enabled:
@@ -790,6 +897,7 @@ class OriginNode:
         self._runner, self.http_port = await _serve(
             self.server.make_app(), self.host, self.http_port, "origin",
             ssl_context=self.ssl_context,
+            profile_device=_profile_device(self.generator.hasher),
         )
         if not self.self_addr:
             self.self_addr = self.addr
@@ -811,6 +919,10 @@ class OriginNode:
                 on_corrupt=self._on_scrub_corrupt,
             )
             self.scrubber.start()
+        # Resource sentinel: the in-process fd/RSS/task/orphan auditor;
+        # budgets from the YAML `resources:` section, surfaced on
+        # /debug/resources and /metrics.
+        self.sentinel = _start_sentinel(self, "origin")
         # Chunk-tier GC: budgeted zero-ref chunk reaper (watermark
         # pressure bypasses the budget inside the cleanup sweep).
         _sync_chunk_gc(self)
@@ -887,6 +999,8 @@ class OriginNode:
             self.apply_rpc(parsed["rpc"])
         if "resources" in parsed:
             self.resources_config = parsed["resources"]
+            if self.sentinel is not None:
+                self.sentinel.apply(self.resources_config)
         if "trace" in parsed:
             self.trace_config = parsed["trace"]
             _apply_trace("origin", self.trace_config, self.store.root)
@@ -898,7 +1012,7 @@ class OriginNode:
                 self.server.delta_config = self.delta_config
         if "profiling" in parsed:
             self.profiling_config = _apply_profiling(
-                "origin", parsed["profiling"], self.store.root
+                self, "origin", parsed["profiling"], self.store.root
             )
             _sync_loop_monitor(self, "origin")
         if "chunkstore" in parsed:
@@ -912,7 +1026,7 @@ class OriginNode:
             _log_tier_reload(self)
         if "slo" in parsed:
             self.slo_config = parsed["slo"]
-            _apply_slo("origin", self.slo_config)
+            _apply_slo(self, "origin", self.slo_config)
         if "ingest" in parsed:
             # Live knob retune -- and live ENABLE on an origin started
             # without a pipeline. Disabling needs a restart.
@@ -1045,8 +1159,12 @@ class OriginNode:
         for t in (self._health_task, self._cleanup_task, self._reseed_task):
             if t:
                 t.cancel()
+        if self.sentinel:
+            self.sentinel.stop()
+            self.sentinel = None
         if self.loop_monitor:
             self.loop_monitor.stop()
+            self.loop_monitor = None
         if self.scrubber:
             self.scrubber.stop()
         if self.chunk_gc:
@@ -1065,6 +1183,7 @@ class OriginNode:
             await self._health_http.close()
         if self.server:
             await self.server.close_heal_cluster()
+        await _release_process_globals(self, self._runner)
         # Reap the cancelled poll task BEFORE releasing the sqlite handle.
         await self.retry.reap()
         self.retry.close()
@@ -1131,6 +1250,7 @@ class BuildIndexNode:
         self.retry.stop()
         if self._runner:
             await self._runner.cleanup()
+        await _release_process_globals(self, self._runner)
         await self.retry.reap()
         self.retry.close()
 
@@ -1189,6 +1309,7 @@ class ProxyNode:
         if self._runner:
             await self._runner.cleanup()
         await self._tag_client.close()
+        await _release_process_globals(self, self._runner)
 
 
 class AgentNode:
@@ -1254,10 +1375,14 @@ class AgentNode:
         self.chunkstore_config = _config(ChunkStoreConfig, chunkstore)
         self.chunk_gc: Optional[ChunkGC] = None
         _sync_chunkstore(self)
-        # Planes that wait (A7e): their sections load, and a value that
-        # would turn one on raises here, before anything starts.
+        # Resource sentinel budgets (YAML `resources:`; live-reloadable).
         self.resources_config = _config(ResourcesConfig, resources)
+        # Synthetic canary prober (utils/canary.py): a periodic seeded
+        # pull through the real stack, so the SLO plane stays fed at
+        # zero user traffic. Shipped OFF (needs `canary.origins`);
+        # SIGHUP live-reloads.
         self.canary_config = _config(CanaryConfig, canary)
+        self.canary: Optional[CanaryProber] = None
         # Delta-transfer plane (p2p/delta.py): on a pull, copy the chunks
         # a locally-held near-duplicate blob already has and fetch only
         # the rest (origin byte ranges + swarm pieces). Shipped OFF;
@@ -1297,6 +1422,9 @@ class AgentNode:
         # at startup.
         self.pex_config = _config(PexConfig, pex)
         self.loop_monitor: Optional[LoopLagMonitor] = None
+        self.sentinel: Optional[ResourceSentinel] = None
+        # Process globals this node started (stopped by its stop()).
+        self._owns_slo = self._owns_sampler = False
         self.scrubber: Optional[Scrubber] = None
         self.fsck_report = None
         self.scheduler: Optional[Scheduler] = None
@@ -1339,9 +1467,9 @@ class AgentNode:
         await asyncio.to_thread(_load_kernels, self.verifier.hasher)
         _apply_trace("agent", self.trace_config, self.store.root)
         self.profiling_config = _apply_profiling(
-            "agent", self.profiling_config, self.store.root
+            self, "agent", self.profiling_config, self.store.root
         )
-        _apply_slo("agent", self.slo_config)
+        _apply_slo(self, "agent", self.slo_config)
         _sync_loop_monitor(self, "agent")
         if self.fsck_enabled:
             self.fsck_report = await asyncio.to_thread(
@@ -1398,6 +1526,7 @@ class AgentNode:
         self._runner, self.http_port = await _serve(
             self.server.make_app(), self.host, self.http_port, "agent",
             ssl_context=self.ssl_context,
+            profile_device=_profile_device(self.verifier.hasher),
         )
         if self.cleanup is not None:
             self._cleanup_task = asyncio.create_task(
@@ -1411,7 +1540,15 @@ class AgentNode:
                 on_corrupt=self._on_scrub_corrupt,
             )
             self.scrubber.start()
+        self.sentinel = _start_sentinel(self, "agent")
         _sync_chunk_gc(self)
+        # Canary prober: started always (one sleeping task), probing
+        # only while canary.enabled -- so SIGHUP can flip it on live.
+        self.canary = CanaryProber(
+            self.store, self.scheduler, self.canary_config,
+            node=f"agent-{self.host}",
+        )
+        self.canary.start()
         if self.build_index_addr:
             from kraken_tpu_torch.buildindex.server import TagClient
             from kraken_tpu_torch.dockerregistry.registry import RegistryServer
@@ -1429,6 +1566,7 @@ class AgentNode:
             self._registry_runner, self.registry_port = await _serve(
                 registry.make_app(), self.host, self.registry_port,
                 "agent-registry", ssl_context=self.ssl_context,
+                profile_device=_profile_device(self.verifier.hasher),
             )
 
     def reload(self, cfg: dict) -> None:
@@ -1469,6 +1607,8 @@ class AgentNode:
             _log.info("rpc config reloaded", extra={"node": self.addr})
         if "resources" in parsed:
             self.resources_config = parsed["resources"]
+            if self.sentinel is not None:
+                self.sentinel.apply(self.resources_config)
         if "trace" in parsed:
             self.trace_config = parsed["trace"]
             _apply_trace("agent", self.trace_config, self.store.root)
@@ -1480,7 +1620,7 @@ class AgentNode:
                 self.delta.config = self.delta_config
         if "profiling" in parsed:
             self.profiling_config = _apply_profiling(
-                "agent", parsed["profiling"], self.store.root
+                self, "agent", parsed["profiling"], self.store.root
             )
             _sync_loop_monitor(self, "agent")
         if "chunkstore" in parsed:
@@ -1494,11 +1634,15 @@ class AgentNode:
             _log_tier_reload(self)
         if "slo" in parsed:
             self.slo_config = parsed["slo"]
-            _apply_slo("agent", self.slo_config)
+            _apply_slo(self, "agent", self.slo_config)
         if "ingest" in parsed:
             self.ingest_config = parsed["ingest"]
         if "canary" in parsed:
+            # Live enable/disable + knob swap: the prober loop re-reads
+            # its config object every tick.
             self.canary_config = parsed["canary"]
+            if self.canary is not None:
+                self.canary.config = self.canary_config
         if "pex" in parsed:
             # Cadence/budgets/TTLs swap live; the peercache path is
             # fixed at startup.
@@ -1524,13 +1668,22 @@ class AgentNode:
             self.scheduler.enter_lameduck()
         if self._cleanup_task:
             self._cleanup_task.cancel()
+        if self.sentinel:
+            self.sentinel.stop()
+            self.sentinel = None
         if self.loop_monitor:
             self.loop_monitor.stop()
+            self.loop_monitor = None
         if self.scrubber:
             self.scrubber.stop()
         if self.chunk_gc:
             self.chunk_gc.stop()
             self.chunk_gc = None
+        if self.canary:
+            # Before the scheduler stops: the reap sweep unseeds its
+            # canary blobs through it.
+            await self.canary.stop()
+            self.canary = None
         # The registry endpoint before the scheduler: no pull starts on a
         # scheduler that is stopping.
         if self._registry_runner:
@@ -1545,5 +1698,8 @@ class AgentNode:
             await self._tag_client.close()
         if self.delta:
             await self.delta.close()
+        await _release_process_globals(
+            self, self._runner, self._registry_runner
+        )
         # LAST: bound the next boot's fsck crash-window verify.
         await asyncio.to_thread(write_clean_shutdown, self.store)

@@ -1,7 +1,8 @@
 """Component entry points: one long-running process per component.
 
-The port's copy of the ``tracker``, ``origin``, ``agent``, ``build-index``
-and ``proxy`` subcommands of ``kraken_tpu.cli``:
+The port's copy of the ``tracker``, ``origin``, ``agent``, ``build-index``,
+``proxy``, ``status``, ``trace``, ``flame`` and ``promgen`` subcommands of
+``kraken_tpu.cli``:
 
     python -m kraken_tpu_torch.cli tracker     --config config/tracker/development.yaml
     python -m kraken_tpu_torch.cli origin      --config config/origin/development.yaml --hasher cuda
@@ -11,6 +12,10 @@ and ``proxy`` subcommands of ``kraken_tpu.cli``:
                                                --origins host:7610
     python -m kraken_tpu_torch.cli proxy       --config config/proxy/base.yaml \
                                                --origins host:7610 --build-index host:7620
+    python -m kraken_tpu_torch.cli status      --nodes host:7601,host:7602,host:7610
+    python -m kraken_tpu_torch.cli trace       agent-dump.jsonl tracker-dump.jsonl origin-dump.jsonl
+    python -m kraken_tpu_torch.cli flame       profile-*.jsonl
+    python -m kraken_tpu_torch.cli promgen     --out deploy/prometheus
 
 Config YAML keys mirror the constructor arguments of the assembly nodes
 (:mod:`kraken_tpu_torch.assembly`); flags override config values. The
@@ -27,6 +32,13 @@ nothing on a card, in the reference either. A top-level key that no node
 of the component reads is logged, never dropped silently. The other
 subcommands of the reference exit 2 with a message naming the ROADMAP
 item that ports them.
+
+``status`` scrapes each node's ``/debug/`` mux and exits 0 (every node
+healthy), 1 (one burning: a firing burn-rate alert, a latched resource
+breach, a failing ``/health``), 2 (one unreachable) or 3 (usage); ``trace``
+joins flight-recorder dumps into span trees (exit 1 on a propagation
+break); ``flame`` folds profile dumps (exit 1 on an unparseable or
+truncated file); ``promgen`` writes ``deploy/prometheus/``.
 """
 
 from __future__ import annotations
@@ -43,13 +55,9 @@ from kraken_tpu_torch.configutil import load_config
 
 # The reference's other subcommands, and the ROADMAP item that ports each.
 NOT_PORTED = {
-    "status": "A7e",
-    "trace": "A7e",
-    "flame": "A7e",
     "scrub": "A7h",
     "fsck": "A7h",
     "lint": "A7h",
-    "promgen": "A7h",
     "locate": "A7h",
     "testfs": "A7h",
 }
@@ -133,6 +141,299 @@ async def _run_until_signal(node, describe: dict,
     if drain_requested and hasattr(node, "drain"):
         await node.drain()
     await node.stop()
+
+
+def run_trace_tool(paths: list[str], trace_id: str | None = None,
+                   slowest: int = 0) -> int:
+    """`trace`: reassemble flight-recorder JSONL dumps
+    offline (multi-node -- pass every node's dump to join a cross-node
+    trace) and print indented span trees, critical path marked with
+    ``*``. Returns the process exit code: 0 joined clean, 1 when any
+    span is an ORPHAN (its parent_id names a span absent from the set:
+    a hop dropped the context, or a node's dump is missing -- CI gates
+    on this), 3 usage error. In-process callable for tests."""
+    from kraken_tpu_torch.utils.trace import (
+        assemble_tree,
+        critical_path,
+        format_tree,
+        load_dumps,
+    )
+
+    try:
+        by_trace = load_dumps(paths)
+    except OSError as e:
+        print(json.dumps({"event": "error", "message": str(e)}), flush=True)
+        return 3
+    if trace_id is not None:
+        if trace_id not in by_trace:
+            print(json.dumps({
+                "event": "error",
+                "message": f"trace {trace_id} not found in dumps",
+            }), flush=True)
+            return 1
+        by_trace = {trace_id: by_trace[trace_id]}
+
+    def span_end(s: dict) -> float:
+        return s.get("start_ts", 0.0) + s.get("duration_s", 0.0)
+
+    def trace_duration(spans: list[dict]) -> float:
+        if not spans:
+            return 0.0
+        return max(span_end(s) for s in spans) - min(
+            s.get("start_ts", 0.0) for s in spans
+        )
+
+    ordered = sorted(
+        by_trace.items(), key=lambda kv: trace_duration(kv[1]), reverse=True
+    )
+    if slowest > 0:
+        ordered = ordered[:slowest]
+
+    total_orphans = 0
+    for tid, spans in ordered:
+        roots, orphans = assemble_tree(spans)
+        total_orphans += len(orphans)
+        nodes = sorted({s.get("node", "") for s in spans if s.get("node")})
+        errored = sum(1 for s in spans if s.get("status") == "error")
+        print(
+            f"trace {tid}  spans={len(spans)}"
+            f"  duration={trace_duration(spans) * 1e3:.1f}ms"
+            f"  nodes={','.join(nodes) or '-'}"
+            + (f"  errors={errored}" if errored else "")
+        )
+        for root in roots:
+            for line in format_tree(root, critical_path(root)):
+                print(line)
+        for s in orphans:
+            print(
+                f"! ORPHAN {s.get('name', '?')} span={s.get('span_id')}"
+                f" parent={s.get('parent_id')} -- parent span missing"
+                f" from the dump set (propagation break or absent node"
+                f" dump)"
+            )
+        print()
+    print(json.dumps({
+        "event": "trace_done",
+        "traces": len(ordered),
+        "orphans": total_orphans,
+    }), flush=True)
+    return 1 if total_orphans else 0
+
+
+def run_flame_tool(paths: list[str], top: int = 0) -> int:
+    """`flame`: fold one or more profile JSONL dumps
+    (utils/profiler.py -- written by the flight-recorder triggers or
+    GET /debug/pprof/profile saved to disk; worker-shard samples ship
+    through the parent, so ONE node dump already covers main loop plus
+    shards) into a single flamegraph-ready collapse on stdout
+    (``node;thread;frames... count``), with the data-plane split
+    (pump/verify/pwrite/serve/...) quantified in a trailing JSON line.
+    Exit codes mirror `trace`'s orphan gate: 0 clean, 1 when
+    any file is unparseable or TRUNCATED (its header promised more
+    stacks than the file holds -- a torn capture must fail CI loudly,
+    not quietly thin the flamegraph), 3 usage (no input readable at
+    all). In-process callable for tests."""
+    from kraken_tpu_torch.utils.profiler import load_profile_dumps, plane_pct_busy
+
+    stacks, planes, errors = load_profile_dumps(paths)
+    if not stacks and not planes and errors:
+        # Nothing at all was usable (unreadable paths, files with no
+        # profile header): a typo'd glob must not "fold clean". A
+        # truncated-but-headed dump still folds what survived -- and
+        # exits 1 below.
+        for err in errors:
+            print(json.dumps({"event": "error", "message": err}),
+                  flush=True)
+        return 3
+    ordered = stacks.most_common(top if top > 0 else None)
+    for stack, count in ordered:
+        print(f"{stack} {count}")
+    for err in errors:
+        print(json.dumps({"event": "error", "message": err}), flush=True)
+    print(json.dumps({
+        "event": "flame_done",
+        "files": len(paths),
+        "stacks": len(stacks),
+        "samples": sum(stacks.values()),
+        "planes": dict(planes),
+        "plane_pct_busy": plane_pct_busy(planes),
+        "errors": len(errors),
+    }), flush=True)
+    return 1 if errors else 0
+
+
+def run_status_tool(nodes: list[str], timeout_seconds: float = 5.0) -> int:
+    """`status`: the operator's fleet-wide entry point.
+    Scrapes ``/debug/`` (surface index), ``/health``, ``/debug/slo``,
+    ``/debug/healthcheck``, and ``/debug/resources`` from every node in
+    the list and prints one table row per node plus a JSON summary
+    line.  Exit codes are the deploy-gate contract (docs/OPERATIONS.md
+    "SLO & canary"): **0** every node healthy, **1** at least one node
+    burning (a firing burn-rate alert, a latched resource breach, or a
+    draining/unhealthy /health), **2** at least one node unreachable
+    (unreachability dominates: a gate cannot call a fleet it cannot
+    see healthy), **3** usage error.  In-process callable for tests."""
+    from kraken_tpu_torch.utils.httputil import HTTPClient, base_url
+
+    if not nodes:
+        print(json.dumps({
+            "event": "error", "message": "status requires --nodes",
+        }), flush=True)
+        return 3
+
+    async def scrape_node(http: HTTPClient, addr: str) -> dict:
+        row: dict = {"addr": addr, "reachable": True, "burning": []}
+
+        async def get_json(path: str):
+            body = await http.get(
+                f"{base_url(addr)}{path}", retry_5xx=False
+            )
+            return json.loads(body)
+
+        # The index answers "what does this node serve" -- and is the
+        # reachability probe (every instrumented mux has it).
+        try:
+            index = await get_json("/debug/")
+        except Exception as e:
+            row["reachable"] = False
+            row["error"] = repr(e)
+            return row
+        row["component"] = index.get("component", "?")
+        surfaces = set(index.get("surfaces", {}))
+        # /health: 503 = draining (lameduck) or refusing -- burning.
+        # Gated on the index: the proxy's registry app serves no
+        # /health route, and a 404 there is not an unhealthy fleet.
+        if "/health" in surfaces:
+            try:
+                await http.get(f"{base_url(addr)}/health", retry_5xx=False)
+                row["health"] = "ok"
+            except Exception:
+                row["health"] = "unhealthy"
+                row["burning"].append("health")
+        else:
+            row["health"] = "n/a"
+        if "/debug/slo" in surfaces:
+            try:
+                slo = await get_json("/debug/slo")
+                row["slo_firing"] = slo.get("firing", [])
+                for alert in row["slo_firing"]:
+                    row["burning"].append(
+                        f"slo:{alert['sli']}:{alert['severity']}"
+                    )
+                canary = slo.get("canary")
+                if canary:
+                    # A verdict older than a few probe intervals is
+                    # history, not state: a prober disabled right
+                    # after one failure must not gate deploys red
+                    # until the process restarts.  The AGE is computed
+                    # node-side (/debug/slo stamps it on its own
+                    # clock), so status-machine clock skew cannot
+                    # flip fresh verdicts stale or vice versa.
+                    age = canary.get("age_seconds", 0.0)
+                    stale = age > 3 * canary.get(
+                        "interval_seconds", 60.0
+                    ) + 60.0
+                    row["canary"] = {
+                        "result": canary.get("result"),
+                        "seq": canary.get("seq"),
+                        "stale": stale,
+                    }
+                    if (
+                        canary.get("result") not in (None, "ok")
+                        and not stale
+                    ):
+                        row["burning"].append(
+                            f"canary:{canary['result']}"
+                        )
+                # Budget exhaustion is burning even between alert
+                # windows: a negative budget means the objective is
+                # already broken for this compliance window.
+                for sli, doc in (
+                    slo.get("last_eval", {}).get("slis", {})
+                ).items():
+                    if doc.get("budget_remaining", 1.0) < 0.0:
+                        row["burning"].append(f"budget:{sli}")
+            except Exception as e:
+                row["burning"].append("slo_unreadable")
+                row["slo_error"] = repr(e)
+        if "/debug/resources" in surfaces:
+            try:
+                res = await get_json("/debug/resources")
+                latched = [
+                    name
+                    for name, snap in res.get("sentinels", {}).items()
+                    if snap.get("breach_latched")
+                ]
+                if latched:
+                    row["burning"].append("resources")
+                    row["resource_breaches"] = latched
+            except Exception:
+                row["burning"].append("resources_unreadable")
+        if "/debug/healthcheck" in surfaces:
+            try:
+                hc = await get_json("/debug/healthcheck")
+                unhealthy = sorted({
+                    host
+                    for snap in hc.values()
+                    for host, h in (snap.get("hosts") or {}).items()
+                    if h.get("state") == "open" or h.get("browned_out")
+                })
+                if unhealthy:
+                    # A tripped breaker on a DOWNSTREAM is context, not
+                    # this node's burn -- report, don't gate.
+                    row["downstream_unhealthy"] = unhealthy
+            except Exception:
+                # Context-only surface: unreadable must not gate, but
+                # the operator should see WHY the column is absent.
+                row["healthcheck_unreadable"] = True
+        return row
+
+    async def main() -> list[dict]:
+        http = HTTPClient(retries=0, timeout_seconds=timeout_seconds)
+        try:
+            return list(await asyncio.gather(*(
+                scrape_node(http, a) for a in nodes
+            )))
+        finally:
+            await http.close()
+
+    rows = asyncio.run(main())
+    header = f"{'NODE':<24} {'COMPONENT':<12} {'HEALTH':<10} STATUS"
+    print(header)
+    for row in rows:
+        if not row["reachable"]:
+            print(f"{row['addr']:<24} {'?':<12} {'UNREACHABLE':<10} "
+                  f"{row.get('error', '')}")
+            continue
+        status = ",".join(row["burning"]) or "healthy"
+        extra = ""
+        if row.get("downstream_unhealthy"):
+            extra = (
+                "  downstream_unhealthy="
+                + ",".join(row["downstream_unhealthy"])
+            )
+        if row.get("healthcheck_unreadable"):
+            # Context-only (never gates), but the operator must see WHY
+            # the downstream column is absent for this node.
+            extra += "  healthcheck=unreadable"
+        canary = row.get("canary")
+        if canary:
+            extra += f"  canary={canary['result']}#{canary['seq']}"
+        print(
+            f"{row['addr']:<24} {row.get('component', '?'):<12} "
+            f"{row['health']:<10} {status}{extra}"
+        )
+    unreachable = [r["addr"] for r in rows if not r["reachable"]]
+    burning = [r["addr"] for r in rows if r.get("burning")]
+    code = 2 if unreachable else (1 if burning else 0)
+    print(json.dumps({
+        "event": "status_done",
+        "nodes": len(rows),
+        "unreachable": unreachable,
+        "burning": burning,
+        "exit_code": code,
+    }), flush=True)
+    return code
 
 
 def _common(parser: argparse.ArgumentParser) -> None:
@@ -239,6 +540,67 @@ def main(argv: list[str] | None = None) -> None:
                          help="durable spool root: upload sessions survive"
                               " proxy restarts (docker push resumes)")
 
+    p_trace = sub.add_parser(
+        "trace", help="offline flight-recorder reassembly: read one or"
+        " more trace dump JSONL files (multi-node), join spans by"
+        " trace_id, and print indented span trees with durations and"
+        " the critical path marked; exit 1 when any span names a parent"
+        " absent from the set (a propagation break -- CI gates on it),"
+        " 3 on usage errors"
+    )
+    p_trace.add_argument("dumps", nargs="+",
+                         help="flight-recorder JSONL dump files (from"
+                              " /debug/trace dump triggers; combine"
+                              " dumps from several nodes to join a"
+                              " cross-node trace)")
+    p_trace.add_argument("--trace-id", default=None,
+                         help="print only this trace (exit 1 if absent"
+                              " from the dumps)")
+    p_trace.add_argument("--slowest", type=int, default=0,
+                         help="print only the N slowest traces")
+
+    p_flame = sub.add_parser(
+        "flame", help="offline continuous-profiling reassembly: fold one"
+        " or more profile JSONL dumps (from the flight-recorder triggers"
+        " or /debug/pprof/profile) into a flamegraph-ready collapse with"
+        " the data-plane split (pump/verify/pwrite/serve) quantified;"
+        " exit 1 when any file is unparseable or truncated (CI gates on"
+        " it), 3 when no input is usable"
+    )
+    p_flame.add_argument("dumps", nargs="+",
+                         help="profile JSONL dump files (profile-*.jsonl"
+                              " from <store>/traces/; one node dump"
+                              " already folds main loop + worker shards)")
+    p_flame.add_argument("--top", type=int, default=0,
+                         help="print only the N hottest stacks")
+
+    p_status = sub.add_parser(
+        "status", help="fleet-wide SLO/health aggregator: scrape"
+        " /debug/, /debug/slo, /debug/healthcheck, /debug/resources"
+        " and /health across a node list into one table; exit 0 every"
+        " node healthy / 1 at least one burning (firing burn-rate"
+        " alert, latched resource breach, failing health) / 2 at least"
+        " one unreachable / 3 usage -- deploy gates run it before and"
+        " after a rollout step"
+    )
+    # NOT argparse-required: a missing --nodes must exit 3 (usage),
+    # never argparse's default 2 -- the deploy-gate contract reserves
+    # 2 for "unreachable" (retryable infra, not a script bug).
+    p_status.add_argument("--nodes", default="",
+                          help="comma-separated host:port list (every"
+                               " component type; the /debug/ index"
+                               " tells the tool what each node serves)")
+    p_status.add_argument("--timeout", type=float, default=5.0,
+                          help="per-request scrape timeout in seconds")
+
+    p_promgen = sub.add_parser(
+        "promgen", help="regenerate deploy/prometheus/ (scrape config +"
+        " burn-rate alert rules) from the shipped SLO defaults; CI"
+        " gates the committed files against a fresh generation"
+    )
+    p_promgen.add_argument("--out", default="deploy/prometheus",
+                           help="output directory")
+
     for name, item in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
         p.add_argument("rest", nargs=argparse.REMAINDER)
@@ -250,6 +612,22 @@ def main(argv: list[str] | None = None) -> None:
                        f" ported yet (ROADMAP {NOT_PORTED[argv[0]]}); run it"
                        " with python -m kraken_tpu.cli\n")
     args = parser.parse_args(argv)
+
+    # The offline tools: no node, no config.
+    if args.component == "trace":
+        sys.exit(run_trace_tool(args.dumps, trace_id=args.trace_id,
+                                slowest=args.slowest))
+    if args.component == "flame":
+        sys.exit(run_flame_tool(args.dumps, top=args.top))
+    if args.component == "status":
+        nodes = [a.strip() for a in (args.nodes or "").split(",") if a.strip()]
+        sys.exit(run_status_tool(nodes, timeout_seconds=args.timeout))
+    if args.component == "promgen":
+        from kraken_tpu_torch.utils.promgen import write_files
+
+        for path in write_files(args.out):
+            print(json.dumps({"event": "generated", "path": path}), flush=True)
+        return
 
     # The heavy imports (torch, the nodes) wait until a node is asked for.
     from kraken_tpu_torch.assembly import (

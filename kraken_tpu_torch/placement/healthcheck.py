@@ -34,9 +34,9 @@ to the BACK of the replica order (:meth:`order`), where hedged reads
 Verdicts are visible: gauges ``breaker_state{host}`` (0 closed / 1
 half-open / 2 open), ``host_latency_ewma_seconds{host}``, and
 ``healthcheck_unhealthy_hosts{source}``, plus :func:`debug_snapshot`,
-which the reference serves as ``GET /debug/healthcheck`` on every metrics
-mux (the port's mux is a later slice) -- "why is this replica being
-skipped" must never require a debugger.
+served as ``GET /debug/healthcheck`` on every metrics mux
+(``utils/metrics.py``) -- "why is this replica being skipped" must never
+require a debugger.
 
 Feeds the hashring: dead origins leave the ring, and their blobs
 re-place onto the survivors.

@@ -25,7 +25,9 @@ Examples: ``once``, ``prob:0.2+seed:7``, ``every:3+times:2+delay:50``.
 
 Configuration: env ``KRAKEN_FAILPOINTS="name=spec,name=spec"`` (setting
 the var is the explicit operator opt-in) or :meth:`FailpointRegistry.arm`.
-The ``/debug/failpoints`` HTTP route waits for the port's server slice.
+Every node's debug mux serves the registry on ``GET /debug/failpoints``
+and arms or disarms it by ``POST`` (``utils/metrics.py``), arming only
+under the same acknowledgement.
 
 Safety: :func:`allow` is the deliberate chaos acknowledgement. Arming does
 NOT imply it -- :meth:`FailpointRegistry.assert_safe` refuses when anything

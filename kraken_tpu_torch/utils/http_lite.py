@@ -12,11 +12,16 @@ Server (``aiohttp.web``):
   templates of ``{name}`` (``[^{}/]+``) and ``{name:regex}`` parts anywhere in
   the path (a regex may span ``/``), resolved as ``aiohttp`` resolves them
   (below), ``middlewares=[...]`` (each ``async def m(request, handler)``,
-  the first outermost; :func:`middleware` marks one), app keys
+  the first outermost; :func:`middleware` marks one, and
+  ``app.middlewares.append`` adds one),
+  ``router.resources()`` (each a resource with ``canonical`` whose routes
+  have ``method``), app keys
   (:class:`AppKey`, ``app[key] = value``), ``client_max_size`` and
   ``cleanup_ctx`` (async generators run up to their ``yield`` by
   :func:`serve` and finished, last first, by ``AppRunner.cleanup()``);
-- :class:`Request`: ``method``, ``path``, ``raw_path``, ``match_info``,
+- :class:`Request`: ``method``, ``path``, ``raw_path``, ``match_info`` (a
+  ``dict`` of the captured parts with ``route.resource.canonical``, the
+  resource ``None`` for the router's 404 and 405, as in ``aiohttp``),
   ``query``, ``headers`` (``getall`` gives a repeated header's values),
   ``remote``, ``transport``, ``app``, ``read()``, ``text()``,
   ``json()``, ``http_range`` (``aiohttp``'s single-range parser: a ``slice``,
@@ -407,15 +412,44 @@ def _unquote_safe(value: str) -> str:
     return value.replace("%2F", "/").replace("%25", "%") if "%" in value else value
 
 
+class _Route:
+    """One method of a resource (``aiohttp``'s ``ResourceRoute``); the
+    router's own 404 and 405 carry one whose ``resource`` is ``None``
+    (``aiohttp``'s ``SystemRoute``)."""
+
+    __slots__ = ("method", "handler", "resource")
+
+    def __init__(self, method: str, handler: Handler | None,
+                 resource: "_Resource | None"):
+        self.method = method
+        self.handler = handler
+        self.resource = resource
+
+
+_SYSTEM_ROUTE = _Route(METH_ANY, None, None)
+
+
+class MatchInfo(dict):
+    """A request's ``match_info``: the template's captured parts, and the
+    ``route`` that matched (``aiohttp``'s ``UrlMappingMatchInfo``), whose
+    ``resource.canonical`` is the template with each part as ``{name}``."""
+
+    def __init__(self, info: dict[str, str] | None = None,
+                 route: _Route = _SYSTEM_ROUTE):
+        super().__init__(info or {})
+        self.route = route
+
+
 class _Resource:
-    """One path template and the handlers of its methods (``aiohttp``'s
-    ``PlainResource`` and ``DynamicResource``)."""
+    """One path template and the routes of its methods (``aiohttp``'s
+    ``PlainResource`` and ``DynamicResource``); iterating it gives the
+    routes, ``canonical`` is the template with each part as ``{name}``."""
 
     def __init__(self, template: str):
         if not template.startswith("/"):
             raise ValueError(f"route {template!r} must start with /")
         self.template = template
-        self.routes: dict[str, Handler] = {}
+        self.routes: dict[str, _Route] = {}
         pattern, canonical, dynamic = "", "", False
         for part in _ROUTE_PART.split(template):
             m = _DYN.fullmatch(part)
@@ -434,6 +468,7 @@ class _Resource:
                 raise ValueError(f"invalid route {template!r} at {part!r}")
             pattern += re.escape(part)
             canonical += part
+        self.canonical = canonical
         try:
             self._pattern = re.compile(pattern) if dynamic else None
         except re.error as e:
@@ -447,7 +482,13 @@ class _Resource:
         if method in self.routes or METH_ANY in self.routes:
             raise RuntimeError(f"route {method} {self.template} will never be executed: "
                                "its method is already registered")
-        self.routes[method] = handler
+        self.routes[method] = _Route(method, handler, self)
+
+    def __iter__(self) -> Iterator[_Route]:
+        return iter(self.routes.values())
+
+    def __len__(self) -> int:
+        return len(self.routes)
 
     def match(self, path: str) -> dict[str, str] | None:
         if self._pattern is None:
@@ -494,7 +535,12 @@ class Router:
     def add_delete(self, path: str, handler: Handler) -> None:
         self.add_route("DELETE", path, handler)
 
-    def resolve(self, method: str, raw_path: str) -> tuple[Handler, dict[str, str]]:
+    def resources(self) -> list[_Resource]:
+        """Every resource, in registration order (``aiohttp``'s
+        ``router.resources()``)."""
+        return list(self._resources)
+
+    def resolve(self, method: str, raw_path: str) -> tuple[Handler, MatchInfo]:
         """The handler and ``match_info`` for a request, tried in
         ``aiohttp``'s order; ``HTTPMethodNotAllowed`` (with ``Allow``) or
         ``HTTPNotFound`` when none takes it."""
@@ -506,9 +552,9 @@ class Router:
                 info = resource.match(path)
                 if info is None:
                     continue
-                handler = resource.routes.get(method, resource.routes.get(METH_ANY))
-                if handler is not None:
-                    return handler, info
+                route = resource.routes.get(method, resource.routes.get(METH_ANY))
+                if route is not None:
+                    return route.handler, MatchInfo(info, route)
                 allowed |= set(resource.routes)
             if part == "/":
                 break
@@ -553,6 +599,7 @@ class Application(MutableMapping):
                                                               request.raw_path)
         except HTTPException as e:
             error = e
+            request.match_info = MatchInfo()
 
             async def handler(_request):
                 raise error
@@ -592,7 +639,7 @@ class Request:
         self.query: dict[str, str] = {}
         for k, v in parse_qsl(qs, keep_blank_values=True):
             self.query.setdefault(k, v)
-        self.match_info: dict[str, str] = {}
+        self.match_info = MatchInfo()
         self._body: bytes | None = None
 
     @property
@@ -744,6 +791,19 @@ class Response(StreamResponse):
                 self.headers["Content-Type"] = f"{ct}; charset={charset}" if charset else ct
         elif content_type is not None and "Content-Type" not in self.headers:
             self.headers["Content-Type"] = content_type
+
+    async def prepare(self, request: Request) -> None:
+        """Sends the head with the body's ``Content-Length``;
+        :meth:`write_eof` then sends the body, as ``aiohttp``'s."""
+        if self._conn is None and not self._no_body() and (
+                self.body or "Content-Length" not in self.headers):
+            self.content_length = len(self.body or b"")
+        await super().prepare(request)
+
+    async def write_eof(self, data: bytes = b"") -> None:
+        if not self._eof and self.body:
+            await super().write(self.body)
+        await super().write_eof(data)
 
     @property
     def text(self) -> str | None:

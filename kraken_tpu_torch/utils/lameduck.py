@@ -27,9 +27,8 @@ _log = logging.getLogger("kraken.lameduck")
 RETRY_AFTER_SECONDS = "5"
 
 # App key under which a component server registers itself so the shared
-# debug handlers (the metrics mux's instrument_app in the reference; the
-# port's mux is a later slice) can count their scrapes into the drain
-# quiesce via track_debug_scrape().
+# debug handlers (the metrics mux's instrument_app) can count their
+# scrapes into the drain quiesce via track_debug_scrape().
 APP_KEY: web.AppKey = web.AppKey(
     "kraken_lameduck_server", object
 )

@@ -21,11 +21,14 @@ The port's part of ``kraken_tpu.utils.profiler``, what the nodes start:
   ``loop_lag_threshold_seconds`` counts a stall and names the main
   thread's last sampled stack in a WARN.
 
-The heap profiler (``HeapProfiler``), the dump loader
-(``load_profile_dumps``) and the ``/debug/pprof`` routes wait for the
-debug slice (ROADMAP A7e); the half that forked workers use
-(``restart_in_child``, ``record_foreign``, ``drain_pending``) waits for
-the multi-core data plane (A7g).
+- :class:`HeapProfiler` (``HEAP``) -- on-demand tracemalloc snapshot/diff
+  with the top-N growth sites, served on ``GET /debug/pprof/heap``.
+- :func:`load_profile_dumps` folds any set of profile dumps for the
+  ``flame`` subcommand, with every unparseable or truncated file named.
+
+The half that forked workers use (``restart_in_child``,
+``record_foreign``, ``drain_pending``) waits for the multi-core data plane
+(ROADMAP A7g).
 
 Overhead discipline: the shipped rate is LOW, and a sample is one
 ``sys._current_frames()`` walk plus a few dict increments off the event
@@ -163,7 +166,7 @@ class ProfilerConfig:
     # tick WARNs with the sampler's concurrent main-thread stack.
     loop_lag_interval_seconds: float = 0.25
     loop_lag_threshold_seconds: float = 0.5
-    # Top-N offender sites in a heap diff (the heap profiler, A7e).
+    # Top-N offender sites in a heap diff (/debug/pprof/heap).
     heap_top: int = 10
     # Where trigger_capture writes profile JSONLs; "" = the node
     # substitutes <store_root>/traces (beside the trace dumps).
@@ -374,8 +377,7 @@ class SamplingProfiler:
             return self._last_stacks.get(self._main_tid)
 
     def snapshot(self) -> dict:
-        """The profile document the reference serves on
-        ``/debug/pprof/profile``."""
+        """The ``/debug/pprof/profile?format=json`` document."""
         with self._lock:
             windows = [
                 {
@@ -619,8 +621,8 @@ class LoopLagMonitor:
 
 
 def looplag_snapshot() -> dict:
-    """Every live monitor's percentile view (the reference serves it on
-    ``GET /debug/pprof/looplag``)."""
+    """The ``GET /debug/pprof/looplag`` document: every live monitor's
+    percentile view."""
     with _monitors_lock:
         insts = list(_monitors)
     return {
@@ -629,3 +631,167 @@ def looplag_snapshot() -> dict:
             for i, m in enumerate(sorted(insts, key=lambda m: m.component))
         },
     }
+
+
+# -- heap diffing -----------------------------------------------------------
+
+class HeapProfiler:
+    """On-demand tracemalloc snapshot/diff, served on
+    ``GET /debug/pprof/heap``: first call starts tracing and baselines;
+    later calls report the top-N growth sites since the baseline. Tracing
+    costs real memory and CPU, so it runs only while an operator asked for
+    it -- ``stop()`` (``?stop=1`` on the endpoint, or the stop of the node
+    that served it) turns it back off, if this profiler turned it on."""
+
+    def __init__(self):
+        self._baseline = None
+        self._started_here = False
+        self._lock = threading.Lock()
+
+    @property
+    def tracing(self) -> bool:
+        import tracemalloc
+
+        return tracemalloc.is_tracing()
+
+    def baseline(self, frames: int = 10) -> dict:
+        import gc
+        import tracemalloc
+
+        with self._lock:
+            if not tracemalloc.is_tracing():
+                tracemalloc.start(frames)
+                self._started_here = True
+            gc.collect()
+            self._baseline = tracemalloc.take_snapshot()
+        cur, peak = tracemalloc.get_traced_memory()
+        return {
+            "status": "baseline",
+            "traced_current_bytes": cur,
+            "traced_peak_bytes": peak,
+        }
+
+    def diff(self, top_n: int = 10) -> dict:
+        """Top-N python-heap growth sites since the baseline. Baselines
+        implicitly on the first call."""
+        import gc
+        import tracemalloc
+
+        with self._lock:
+            if self._baseline is None or not tracemalloc.is_tracing():
+                pass  # fall through to baseline below
+            else:
+                gc.collect()
+                snap = tracemalloc.take_snapshot()
+                stats = snap.compare_to(self._baseline, "lineno")
+                cur, peak = tracemalloc.get_traced_memory()
+                return {
+                    "status": "diff",
+                    "traced_current_bytes": cur,
+                    "traced_peak_bytes": peak,
+                    "top": [
+                        {
+                            "site": str(s.traceback),
+                            "size_diff_bytes": s.size_diff,
+                            "count_diff": s.count_diff,
+                            "size_bytes": s.size,
+                        }
+                        for s in stats[:top_n]
+                    ],
+                }
+        return self.baseline()
+
+    def stop(self) -> dict:
+        import tracemalloc
+
+        with self._lock:
+            self._baseline = None
+            if tracemalloc.is_tracing() and self._started_here:
+                tracemalloc.stop()
+            self._started_here = False
+        return {"status": "stopped"}
+
+
+HEAP = HeapProfiler()
+
+
+# -- offline reassembly (the `kraken-tpu flame` subcommand) -----------------
+
+class ProfileDumpError(Exception):
+    """A profile dump file failed validation (unparseable line, missing
+    header, or fewer stack lines than the header promised -- a
+    truncated capture). ``kraken-tpu flame`` exits non-zero on it."""
+
+
+def load_profile_dumps(
+    paths: Iterable[str],
+) -> tuple[collections.Counter, collections.Counter, list[str]]:
+    """Read one or more profile JSONL dumps (multi-node) into
+    (merged ``node;stack`` -> count, plane -> count, errors). Every
+    error string names the file and the defect; callers gate CI on the
+    list being empty."""
+    stacks: collections.Counter[str] = collections.Counter()
+    planes: collections.Counter[str] = collections.Counter()
+    errors: list[str] = []
+    for path in paths:
+        try:
+            with open(path) as f:
+                lines = f.readlines()
+        except OSError as e:
+            errors.append(f"{path}: unreadable: {e}")
+            continue
+        expected: int | None = None
+        seen = 0
+        header_ok = False
+        for lineno, line in enumerate(lines, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                errors.append(f"{path}:{lineno}: unparseable line")
+                continue
+            if not isinstance(doc, dict):
+                errors.append(f"{path}:{lineno}: not an object")
+                continue
+            if "profile" in doc:
+                if expected is not None and seen < expected:
+                    errors.append(
+                        f"{path}: truncated block: header promised "
+                        f"{expected} stacks, found {seen}"
+                    )
+                expected = doc.get("stacks")
+                if not isinstance(expected, int):
+                    errors.append(f"{path}:{lineno}: header missing stacks")
+                    expected = None
+                seen = 0
+                header_ok = True
+                for plane, c in (doc.get("planes") or {}).items():
+                    try:
+                        planes[str(plane)] += int(c)
+                    except (TypeError, ValueError):
+                        errors.append(
+                            f"{path}:{lineno}: malformed plane count"
+                        )
+                continue
+            if "stack" in doc:
+                seen += 1
+                try:
+                    count = int(doc.get("count", 1))
+                except (TypeError, ValueError):
+                    errors.append(f"{path}:{lineno}: malformed count")
+                    continue
+                node = str(doc.get("node") or "")
+                key = f"{node};{doc['stack']}" if node else str(doc["stack"])
+                stacks[key] += count
+                continue
+            errors.append(f"{path}:{lineno}: neither header nor stack")
+        if not header_ok:
+            errors.append(f"{path}: no profile header")
+        elif expected is not None and seen < expected:
+            errors.append(
+                f"{path}: truncated: header promised {expected} stacks, "
+                f"found {seen}"
+            )
+    return stacks, planes, errors

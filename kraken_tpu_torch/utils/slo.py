@@ -1,31 +1,61 @@
-"""Black-box SLO plane: SLI recorders over sliding windows.
+"""Black-box SLO plane: SLI recorders, multi-window burn-rate alerts.
 
-The port's part of ``kraken_tpu.utils.slo``: the objectives, the burn
-window pairs and the config (``SLOConfig``), the bucketed good/bad window
-of one SLI (``SLIRecorder``) and :meth:`SLOManager.record`, which the
-scheduler calls for every announce. Canary traffic
-(``CANARY_NAMESPACE``) records with ``canary=True``: counted into the
-windows, and kept apart in the counters so dashboards can exclude it
-(``slo_events_total{sli,result,canary}``).
+The port's copy of ``kraken_tpu.utils.slo``, the Google SRE workbook's
+answer to "is the fleet meeting its objective right now, and if not, which
+plane is burning the budget?":
 
-:meth:`SLOManager.apply` swaps the config at a node's start and on
-SIGHUP. The evaluator (its thread, burn rates, the multi-window alerts,
-their gauges and the ``/debug/slo`` document) waits for the debug slice
-(ROADMAP A7e), so ``eval_interval_seconds`` and the alert windows load
-and wait for it.
+- **SLI recorders** (:class:`SLIRecorder`) over the planes that matter:
+  bucketed sliding windows of good/bad events, one dict update under a
+  lock per request;
+- **multi-burn-rate evaluation** (:meth:`SLOManager.evaluate`, on a daemon
+  thread every ``eval_interval_seconds``): each objective is watched by a
+  paged fast pair and a ticketed slow pair of windows; an alert fires when
+  both windows of a pair burn past the threshold and clears when the short
+  window recovers;
+- **surfaces**: ``slo_burn_rate{sli,window}``,
+  ``slo_error_budget_remaining{sli}`` and ``slo_alert_firing{sli,severity}``
+  on ``/metrics``, and the ``GET /debug/slo`` document
+  (:meth:`SLOManager.debug_snapshot`) that the ``status`` subcommand reads;
+- a page transitioning to firing calls the flight recorder's
+  ``trigger_dump``, which captures a profile window too.
+
+Canary traffic (``utils/canary.py``, :data:`CANARY_NAMESPACE`) records with
+``canary=True``: counted into the burn-rate math, kept apart in the counters
+so user-facing dashboards can exclude it
+(``slo_events_total{sli,result,canary="1"}``).
+
+One manager per process (like the TRACER and the PROFILER); nodes apply
+their YAML ``slo:`` section at start and on SIGHUP. A node whose
+:meth:`~SLOManager.apply` started the evaluator stops it in its own
+``stop()`` (:meth:`SLOManager.stop`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import threading
 import time
+
+_log = logging.getLogger("kraken.slo")
 
 # The namespace canary traffic pulls under; the scheduler labels
 # announce SLIs for it as canary, and operators can TTL-reap or firewall
 # it knowing no user blob ever lives there.
 CANARY_NAMESPACE = "kraken-canary"
+
+
+def format_window(seconds: float) -> str:
+    """Human window label for the ``window`` gauge label: 300 -> "5m",
+    3600 -> "1h", 90 -> "90s".  Stable across evaluator and promgen so
+    generated alert rules match what the gauges actually export."""
+    seconds = int(seconds)
+    if seconds % 3600 == 0:
+        return f"{seconds // 3600}h"
+    if seconds % 60 == 0:
+        return f"{seconds // 60}m"
+    return f"{seconds}s"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,41 +265,68 @@ class SLIRecorder:
         return (c["bad"] / total) if total else 0.0
 
 
+class _AlertState:
+    """Firing latch for one (sli, severity) pair."""
+
+    __slots__ = ("firing", "since_ts", "fired_count")
+
+    def __init__(self):
+        self.firing = False
+        self.since_ts = 0.0
+        self.fired_count = 0
+
+
 class SLOManager:
-    """Process-global SLO state: config and per-SLI recorders (one per
-    process, like the metric REGISTRY and the TRACER)."""
+    """Process-global SLO state: config, per-SLI recorders, alert
+    latches, the evaluator thread, and the ``/debug/slo`` document.
+
+    The evaluator is a daemon THREAD (like the sampling profiler), not
+    an asyncio task: trackers, origins, and agents all share the same
+    lifecycle without owning a loop, and a wedged event loop -- exactly
+    the failure the SLO plane must still report -- cannot stall it."""
 
     def __init__(self, config: SLOConfig | None = None):
         self.config = config or SLOConfig()
-        self.node = ""  # component stamp (the node sets it)
+        self.node = ""  # component stamp (assembly sets it)
         self._lock = threading.Lock()
         self._recorders: dict[str, SLIRecorder] = {}
+        self._alerts: dict[tuple[str, str], _AlertState] = {}
+        self._thread: threading.Thread | None = None
+        self._wake = threading.Event()
         # Monotonic clock, injectable so tests drive deterministic
         # window math without sleeping.
         self._clock = time.monotonic
+        # Last full evaluation document (the /debug/slo body's core).
+        self._last_eval: dict = {}
+        # The canary prober (utils/canary.py) publishes its latest probe
+        # document here; /debug/slo embeds it.
+        self.canary_status: dict | None = None
         from kraken_tpu_torch.utils.metrics import REGISTRY
 
-        # Cached ref: the recorders count every request.
+        # Cached refs: the evaluator sets these every tick and the
+        # recorders count every request -- no registry lookups there.
         self._c_events = REGISTRY.counter(
             "slo_events_total",
             "SLI events recorded, by sli, result, and canary flag",
         )
-
-    def apply(self, config: SLOConfig | dict | None) -> None:
-        """Live config swap (start + SIGHUP): objectives apply from the
-        next record. Recorders persist across reloads (history is the
-        whole point of a sliding window) unless the bucket geometry
-        changed."""
-        if not isinstance(config, SLOConfig):
-            config = SLOConfig.from_dict(config)
-        old = self.config
-        self.config = config
-        with self._lock:
-            if (
-                old.bucket_seconds != config.bucket_seconds
-                or old.horizon_seconds != config.horizon_seconds
-            ):
-                self._recorders.clear()
+        self._g_burn = REGISTRY.gauge(
+            "slo_burn_rate",
+            "Error-budget burn rate per SLI and trailing window"
+            " (1.0 = exactly on budget)",
+        )
+        self._g_budget = REGISTRY.gauge(
+            "slo_error_budget_remaining",
+            "Fraction of the error budget left over the longest window"
+            " (negative = budget exhausted)",
+        )
+        self._g_firing = REGISTRY.gauge(
+            "slo_alert_firing",
+            "1 while a burn-rate alert is firing, by sli and severity",
+        )
+        self._c_fired = REGISTRY.counter(
+            "slo_alerts_fired_total",
+            "Burn-rate alert firing transitions, by sli and severity",
+        )
 
     # -- recording ---------------------------------------------------------
 
@@ -309,6 +366,219 @@ class SLOManager:
                 )
                 self._recorders[sli] = rec
             return rec
+
+    # -- config / lifecycle ------------------------------------------------
+
+    def apply(self, config: SLOConfig | dict | None) -> None:
+        """Live config swap (start + SIGHUP): objectives and windows
+        apply from the next evaluation; the evaluator thread follows
+        the enabled flag.  Recorders persist across reloads (history is
+        the whole point of a sliding window) unless the bucket geometry
+        changed."""
+        if not isinstance(config, SLOConfig):
+            config = SLOConfig.from_dict(config)
+        old = self.config
+        self.config = config
+        with self._lock:
+            if (
+                old.bucket_seconds != config.bucket_seconds
+                or old.horizon_seconds != config.horizon_seconds
+            ):
+                self._recorders.clear()
+        if config.enabled and self._thread is None:
+            self._wake.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="kraken-slo-eval", daemon=True
+            )
+            self._thread.start()
+        elif not config.enabled and self._thread is not None:
+            self.stop()
+
+    @property
+    def running(self) -> bool:
+        """Whether the evaluator thread runs (the port's: a node records
+        whether its ``apply`` started it, to stop it in its own stop)."""
+        return self._thread is not None
+
+    def stop(self) -> None:
+        t = self._thread
+        self._thread = None
+        self._wake.set()
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=2.0)
+
+    def _run(self) -> None:
+        while self._thread is threading.current_thread():
+            self._wake.wait(self.config.eval_interval_seconds)
+            if self._thread is not threading.current_thread():
+                return
+            try:
+                self.evaluate()
+            except Exception:  # pragma: no cover - evaluator must survive
+                _log.warning("slo evaluation failed", exc_info=True)
+
+    # -- evaluation --------------------------------------------------------
+
+    def evaluate(self) -> dict:
+        """One full evaluation: burn rates per (sli, window), budget
+        remaining, alert transitions, gauges.  Called by the thread on
+        its cadence and synchronously by tests."""
+        cfg = self.config
+        doc: dict = {}
+        pairs = (cfg.fast, cfg.slow)
+        with self._lock:
+            recorders = dict(self._recorders)
+        for sli, obj in cfg.objective_map.items():
+            rec = recorders.get(sli)
+            windows: dict[str, dict] = {}
+            # Distinct window durations across both pairs (fast/slow
+            # may share a duration; one gauge per duration).
+            durations = sorted({
+                p.short_seconds for p in pairs
+            } | {p.long_seconds for p in pairs})
+            for w in durations:
+                counts = rec.counts(w) if rec is not None else {
+                    "good": 0.0, "bad": 0.0,
+                    "canary_good": 0.0, "canary_bad": 0.0,
+                }
+                total = counts["good"] + counts["bad"]
+                err = (counts["bad"] / total) if total else 0.0
+                burn = err / obj.error_budget
+                label = format_window(w)
+                windows[label] = {
+                    "seconds": w, "error_rate": round(err, 6),
+                    "burn_rate": round(burn, 3), **counts,
+                }
+                self._g_burn.set(burn, sli=sli, window=label)
+            longest = format_window(durations[-1])
+            budget_remaining = 1.0 - (
+                windows[longest]["error_rate"] / obj.error_budget
+            )
+            self._g_budget.set(budget_remaining, sli=sli)
+            alerts = {}
+            for pair in pairs:
+                alerts[pair.severity] = self._transition(
+                    sli, pair,
+                    windows[format_window(pair.short_seconds)]["burn_rate"],
+                    windows[format_window(pair.long_seconds)]["burn_rate"],
+                )
+            doc[sli] = {
+                "target": obj.target,
+                "latency_threshold_seconds": obj.latency_threshold_seconds,
+                "error_budget": round(obj.error_budget, 6),
+                "budget_remaining": round(budget_remaining, 4),
+                "windows": windows,
+                "alerts": alerts,
+            }
+        self._last_eval = {"ts": time.time(), "slis": doc}
+        return doc
+
+    def _transition(self, sli: str, pair: BurnWindowPair,
+                    short_burn: float, long_burn: float) -> dict:
+        # The dict resize must not race firing()'s iteration on the
+        # event-loop thread (the evaluator runs on its own thread).
+        with self._lock:
+            state = self._alerts.setdefault(
+                (sli, pair.severity), _AlertState()
+            )
+        if not state.firing:
+            # Fire only on the AND-condition: the long window proves
+            # the burn is material, the short window proves it is
+            # still happening right now.
+            if short_burn > pair.burn_rate and long_burn > pair.burn_rate:
+                state.firing = True
+                state.since_ts = time.time()
+                state.fired_count += 1
+                self._c_fired.inc(sli=sli, severity=pair.severity)
+                detail = (
+                    f"{sli}: {pair.severity} burn {short_burn:.1f}x over"
+                    f" {format_window(pair.short_seconds)} and"
+                    f" {long_burn:.1f}x over"
+                    f" {format_window(pair.long_seconds)}"
+                    f" (threshold {pair.burn_rate}x, node {self.node})"
+                )
+                _log.warning("slo alert firing", extra={
+                    "sli": sli, "severity": pair.severity,
+                    "short_burn": round(short_burn, 2),
+                    "long_burn": round(long_burn, 2),
+                })
+                if pair.severity == "page":
+                    # Every page ships its own postmortem: the flight-
+                    # recorder dump, whose trigger hook also
+                    # captures a profile window.  Ticket-grade
+                    # burns stay quiet -- they have hours of runway.
+                    from kraken_tpu_torch.utils.trace import TRACER
+
+                    TRACER.trigger_dump("slo_fast_burn", detail)
+        else:
+            # Hysteresis: clear on the SHORT window alone.  The long
+            # window stays hot for its whole span after a real incident
+            # -- clearing on the AND of both would page for hours after
+            # recovery; clearing on either-below would flap.
+            if short_burn <= pair.burn_rate:
+                state.firing = False
+                _log.info("slo alert resolved", extra={
+                    "sli": sli, "severity": pair.severity,
+                })
+        self._g_firing.set(
+            1.0 if state.firing else 0.0, sli=sli, severity=pair.severity
+        )
+        return {
+            "firing": state.firing,
+            "since_ts": round(state.since_ts, 3) if state.firing else None,
+            "fired_count": state.fired_count,
+            "threshold": pair.burn_rate,
+            "short_window": format_window(pair.short_seconds),
+            "long_window": format_window(pair.long_seconds),
+        }
+
+    # -- debug surface -----------------------------------------------------
+
+    def firing(self) -> list[dict]:
+        """Currently-firing alerts, the status tool's gate signal."""
+        out = []
+        with self._lock:  # the evaluator thread resizes this dict
+            alerts = sorted(self._alerts.items())
+        for (sli, severity), state in alerts:
+            if state.firing:
+                out.append({
+                    "sli": sli, "severity": severity,
+                    "since_ts": round(state.since_ts, 3),
+                })
+        return out
+
+    def debug_snapshot(self) -> dict:
+        """The ``GET /debug/slo`` document."""
+        cfg = self.config
+        canary = self.canary_status
+        if canary is not None:
+            # Age computed HERE, on the same host clock that stamped
+            # ts: a skewed status-machine clock must not flip a fresh
+            # failing verdict to "stale" (or vice versa).
+            canary = {
+                **canary,
+                "age_seconds": round(time.time() - canary.get("ts", 0.0), 3),
+            }
+        return {
+            "node": self.node,
+            "enabled": cfg.enabled,
+            "eval_interval_seconds": cfg.eval_interval_seconds,
+            "windows": {
+                "page": {
+                    "short": format_window(cfg.fast.short_seconds),
+                    "long": format_window(cfg.fast.long_seconds),
+                    "burn_rate": cfg.fast.burn_rate,
+                },
+                "ticket": {
+                    "short": format_window(cfg.slow.short_seconds),
+                    "long": format_window(cfg.slow.long_seconds),
+                    "burn_rate": cfg.slow.burn_rate,
+                },
+            },
+            "firing": self.firing(),
+            "last_eval": self._last_eval,
+            "canary": canary,
+        }
 
 
 SLO = SLOManager()

@@ -18,9 +18,10 @@ download's trace crosses between the two packages' nodes:
   :meth:`Tracer.record_foreign` for span dicts shipped home by other
   processes.
 
-The dump loader and the tree tools of the reference (``load_dumps``,
-``assemble_tree``, ``critical_path``, ``format_tree``) and the histogram
-exemplar hookup wait for the debug and tools slices.
+Offline, :func:`load_dumps`, :func:`assemble_tree`, :func:`critical_path`
+and :func:`format_tree` join several nodes' dumps into span trees (the
+``trace`` subcommand). At import the module registers
+:func:`exemplar_trace_id` as the metric histograms' exemplar provider.
 
 Overhead discipline: the shipped sample rate is LOW, span creation is a
 plain object + two clock reads, and the per-piece spans in the data plane
@@ -594,3 +595,120 @@ def exemplar_trace_id() -> str | None:
     if sp is None or not sp.sampled:
         return None
     return sp.trace_id
+
+
+# -- offline reassembly (the `kraken-tpu trace` subcommand) -----------------
+
+
+def load_dumps(paths: Iterable[str]) -> dict[str, list[dict]]:
+    """Read one or more flight-recorder JSONL dumps (multi-node) into
+    trace_id -> [span dicts]. Dump header lines (``{"dump": ...}``) and
+    malformed lines are skipped; duplicate span ids (the same dump taken
+    twice, or a span present in two nodes' rings) dedupe."""
+    by_trace: dict[str, dict[str, dict]] = {}
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    doc = json.loads(line)
+                except ValueError:
+                    continue
+                if not isinstance(doc, dict) or "trace_id" not in doc:
+                    continue
+                spans = by_trace.setdefault(doc["trace_id"], {})
+                spans.setdefault(doc.get("span_id", ""), doc)
+    return {tid: list(spans.values()) for tid, spans in by_trace.items()}
+
+
+def assemble_tree(spans: list[dict]) -> tuple[list[dict], list[dict]]:
+    """(roots, orphans): spans whose parent_id is empty are roots;
+    spans naming a parent that is absent from the set are ORPHANS -- a
+    propagation break (a hop that dropped the context), which the CLI
+    turns into a non-zero exit for CI. Spans unreachable from any root
+    (a corrupt/crafted line with a parent cycle, e.g. span_id ==
+    parent_id) are orphans too: they must fail CI loudly, not vanish
+    from the printed tree."""
+    by_id = {s.get("span_id"): s for s in spans}
+    children: dict[str, list[dict]] = {}
+    roots: list[dict] = []
+    orphans: list[dict] = []
+    for s in spans:
+        pid = s.get("parent_id") or ""
+        if not pid:
+            roots.append(s)
+        elif pid in by_id and pid != s.get("span_id"):
+            children.setdefault(pid, []).append(s)
+        else:
+            orphans.append(s)
+    # Parent pointers make cycles unreachable from every root; sweep
+    # reachability so cycle members surface as orphans.
+    reachable: set[str] = set()
+    stack = [s.get("span_id") for s in roots]
+    while stack:
+        sid = stack.pop()
+        if sid in reachable:
+            continue
+        reachable.add(sid)
+        stack.extend(c.get("span_id") for c in children.get(sid, []))
+    for pid in list(children):
+        if pid not in reachable:
+            orphans.extend(children.pop(pid))
+    for s in spans:
+        s["_children"] = sorted(
+            children.get(s.get("span_id"), []),
+            key=lambda c: c.get("start_ts", 0.0),
+        )
+    roots.sort(key=lambda s: s.get("start_ts", 0.0))
+    return roots, orphans
+
+
+def critical_path(root: dict) -> set[str]:
+    """Span ids on the critical path: from the root, repeatedly descend
+    into the child whose END time is latest -- the chain that actually
+    bounded the trace's wall clock."""
+    path = set()
+    node = root
+    while node is not None and node.get("span_id") not in path:
+        path.add(node.get("span_id"))
+        kids = node.get("_children") or []
+        node = max(
+            kids,
+            key=lambda c: c.get("start_ts", 0.0) + c.get("duration_s", 0.0),
+            default=None,
+        )
+    return path
+
+
+# Exemplar hookup: histograms attach the active sampled trace id to
+# their observations (metrics never imports trace -- this registration
+# is the one-way bridge).
+from kraken_tpu_torch.utils import metrics as _metrics  # noqa: E402
+
+_metrics.set_exemplar_provider(exemplar_trace_id)
+
+
+def format_tree(root: dict, crit: set[str] | None = None) -> list[str]:
+    """Indented span tree with durations; critical-path spans carry a
+    ``*`` gutter."""
+    crit = crit if crit is not None else critical_path(root)
+    t0 = root.get("start_ts", 0.0)
+    lines: list[str] = []
+
+    def walk(s: dict, depth: int) -> None:
+        mark = "*" if s.get("span_id") in crit else " "
+        status = "" if s.get("status") == "ok" else f"  [{s.get('status')}]"
+        node = f"  @{s['node']}" if s.get("node") else ""
+        offset = (s.get("start_ts", 0.0) - t0) * 1e3
+        lines.append(
+            f"{mark} {'  ' * depth}{s.get('name', '?')}"
+            f"  +{offset:.1f}ms {s.get('duration_s', 0.0) * 1e3:.1f}ms"
+            f"{node}{status}"
+        )
+        for c in s.get("_children") or []:
+            walk(c, depth + 1)
+
+    walk(root, 0)
+    return lines

@@ -3,8 +3,8 @@ against ``yaml.safe_load`` (the nine files under ``config/`` and
 hypothesis-generated documents of the subset), ``configutil.load_config``
 against the reference's, every shipped section through the port's config
 class against the reference's class, every top-level key read by the port's
-CLI, and every value that would turn on a plane that waits refused by name
--- at construction and on SIGHUP alike."""
+CLI, every value that turns on an operator plane taken at start and by
+SIGHUP, and the planes still waiting refused by name."""
 
 import dataclasses
 import json
@@ -292,13 +292,13 @@ def test_an_unread_key_is_logged_never_dropped_silently(caplog):
     assert "registry_port_typo" in caplog.text
 
 
-# -- values that turn on a plane that waits -------------------------------------
+# -- values that turn on an operator plane --------------------------------------
 
 PLANE_VALUES = [
-    ("resources", {"max_rss_mb": 512}, "A7e"),
-    ("resources", {"max_open_fds": 1024}, "A7e"),
-    ("resources", {"drain_on_breach": True}, "A7e"),
-    ("canary", {"enabled": True, "origins": "o:1"}, "A7e"),
+    ("resources", {"max_rss_mb": 512}),
+    ("resources", {"max_open_fds": 1024}),
+    ("resources", {"drain_on_breach": True}),
+    ("canary", {"enabled": True, "origins": "o:1"}),
 ]
 
 
@@ -317,22 +317,51 @@ NODE_PLANES = [(n, *v) for n in ("agent", "origin") for v in PLANE_VALUES
                if not (n == "origin" and v[0] == "canary")]
 
 
-@pytest.mark.parametrize("node,section,doc,item", NODE_PLANES,
-                         ids=[f"{n}-{s}-{i}" for n, s, _d, i in NODE_PLANES])
-def test_a_value_that_turns_on_a_waiting_plane_is_refused_at_start_and_on_sighup(
-        tmp_path, node, section, doc, item):
+def _plane_state(n, section: str, doc: dict):
+    """What the node's running plane holds of ``doc``'s key: the sentinel's
+    budget or the prober's flag."""
+    key = next(iter(doc))
+    plane = n.sentinel if section == "resources" else n.canary
+    return getattr(plane.config, key)
+
+
+@pytest.mark.parametrize("node,section,doc", NODE_PLANES,
+                         ids=[f"{n}-{s}-{next(iter(d))}" for n, s, d in NODE_PLANES])
+def test_a_value_that_turns_on_an_operator_plane_is_taken_at_start_and_by_sighup(
+        tmp_path, process_globals, node, section, doc):
+    """A resources: budget, drain_on_breach and canary.enabled turn their
+    plane on at start, and a SIGHUP turns it off and on again, as in the
+    reference. A started sentinel's sample breaches a budget exactly when
+    its value exceeds it. A reload that raises keeps the whole config."""
+    import asyncio
+
     make = _agent if node == "agent" else _origin
     key = next(iter(doc))
-    with pytest.raises(ValueError, match=item) as ei:
-        make(tmp_path, **{section: doc})
-    assert key in str(ei.value)
-    n = make(tmp_path)
-    before = getattr(n, f"{section}_config")
-    with pytest.raises(ValueError, match=item):
-        n.reload({section: doc, "trace": {"sample_rate": 0.5}})
-    # Parsed whole before any part is applied: nothing changed.
-    assert getattr(n, f"{section}_config") is before
-    assert n.trace_config.sample_rate != 0.5
+
+    async def main():
+        n = make(tmp_path, **{section: doc})
+        await n.start()
+        try:
+            assert _plane_state(n, section, doc) == doc[key]
+            if section == "resources" and key != "drain_on_breach":
+                sample = await n.sentinel.sample()
+                kind = {"max_rss_mb": ("rss", "rss_mb"),
+                        "max_open_fds": ("fds", "open_fds")}[key]
+                assert (kind[0] in sample["breached"]) == (sample[kind[1]] > doc[key])
+            n.reload({section: {}})
+            assert not _plane_state(n, section, doc)
+            before = getattr(n, f"{section}_config")
+            with pytest.raises(ValueError, match="unknown"):
+                n.reload({section: doc, "rpc": {"no_such_knob": 1}})
+            assert getattr(n, f"{section}_config") is before
+            assert not _plane_state(n, section, doc)
+            n.reload({section: doc, "trace": {"sample_rate": 0.5}})
+            assert _plane_state(n, section, doc) == doc[key]
+            assert n.trace_config.sample_rate == 0.5
+        finally:
+            await n.stop()
+
+    asyncio.run(main())
 
 
 TIER_NODES = [(n, s) for n in ("agent", "origin") for s in ("delta", "chunkstore")]
@@ -396,14 +425,15 @@ def test_the_nodes_default_to_the_card(monkeypatch, tmp_path):
 
 
 def test_the_observe_only_sentinel_and_the_prober_are_not_started(tmp_path, process_globals):
-    """The shipped resources: and canary: sections load, and nothing of
-    the planes that wait runs: no sentinel, no prober, no resource
-    gauges (ROADMAP §C). The shipped delta: and chunkstore: sections
-    (off) give the agent its planner, idle, and no chunk tier or reaper,
-    as in the reference."""
+    """The shipped resources: section starts the observe-only sentinel
+    (every budget 0: it samples and never breaches), and the node's stop()
+    stops it and takes it off /debug/resources. The shipped canary:
+    section builds the prober, which idles while enabled is false. The
+    shipped delta: and chunkstore: sections (off) give the agent its
+    planner, idle, and no chunk tier or reaper, as in the reference."""
     import asyncio
 
-    from kraken_tpu_torch.utils.metrics import REGISTRY
+    from kraken_tpu_torch.utils import resources
 
     cfg = configutil.load_config(str(CONFIG / "agent/development.yaml"))
 
@@ -416,12 +446,24 @@ def test_the_observe_only_sentinel_and_the_prober_are_not_started(tmp_path, proc
         try:
             assert not n.delta.config.enabled and n.chunk_gc is None
             assert n.store.chunkstore is None
-            return {k for k in vars(n) if k in ("sentinel", "canary")}
+            sentinel, canary = n.sentinel, n.canary
+            assert sentinel._task is not None and not sentinel._task.done()
+            assert (await sentinel.sample())["breached"] == []
+            mine = [k for k, v in resources.debug_snapshot()["sentinels"].items()
+                    if v["last_sample"] is sentinel.last_sample]
+            assert len(mine) == 1
+            assert not canary.config.enabled and canary._task is not None
+            await asyncio.sleep(0)
+            assert canary._seq == 0
+            task = sentinel._task
         finally:
             await n.stop()
+        await asyncio.sleep(0)
+        assert task.done() and sentinel._task is None and n.sentinel is None
+        assert n.canary is None and canary._task is None
+        assert sentinel not in list(resources._instances)
 
-    assert asyncio.run(main()) == set()
-    assert "resource_open_fds" not in REGISTRY.render()
+    asyncio.run(main())
 
 
 def test_an_origin_on_the_card_gets_an_ingest_pipeline_by_default(monkeypatch, tmp_path):

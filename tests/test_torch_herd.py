@@ -190,10 +190,10 @@ def test_sighup_reloads_the_agents_scheduler_and_a_bad_reload_keeps_the_config(t
         procs[0].send_signal(signal.SIGHUP)
         log = _wait_for(err, '"wire_send_batch": 8')
         assert "scheduler config reloaded" in log
-        cfg.write_text(base + "4\ncanary:\n  enabled: true\n  origins: o:1\n")
+        cfg.write_text(base + "4\n  data_plane_workers: 2\n")
         procs[0].send_signal(signal.SIGHUP)
         log = _wait_for(err, "keeping current config")
-        assert "A7e" in log and '"wire_send_batch": 4' not in log
+        assert "A7g" in log and '"wire_send_batch": 4' not in log
         assert stop_all(procs) == [0]
 
 

@@ -438,6 +438,10 @@ def test_deliberate_differences_from_aiohttp():
         app.router.add_get("/x/{n:.*}/y", handler)
         with pytest.raises(ValueError):
             w.Application().router.add_get("/x/{n:(}", handler)
+    # Lifted: match_info carries its route, whose resource's canonical
+    # template is aiohttp's (None for the router's 404 and 405), and the
+    # router lists its resources and their methods as aiohttp's does.
+    assert asyncio.run(_match_infos(http_lite)) == asyncio.run(_match_infos(web))
     # A repeated header's values join under [name]; getall gives each, as
     # aiohttp's getall does. The query keeps each name's first value.
     h = http_lite.Headers()
@@ -467,10 +471,47 @@ def test_deliberate_differences_from_aiohttp():
         http_lite.Headers({"X-Bad": "a\r\nInjected: 1"})
 
 
+async def _match_infos(w) -> dict:
+    """What each kind of request's match_info names, and the router's
+    resources with their methods, on one server of ``w``."""
+    seen = {}
+
+    @w.middleware
+    async def record(req, handler):
+        resource = req.match_info.route.resource
+        seen[f"{req.method} {req.path}"] = (
+            dict(req.match_info), None if resource is None else resource.canonical)
+        return await handler(req)
+
+    async def ok(req):
+        return w.Response(text="ok")
+
+    app = w.Application(middlewares=[record])
+    app.router.add_get(r"/blobs/{d:[0-9a-f]+}", ok)
+    app.router.add_get("/ns/{ns}/blobs/{d}", ok)
+    app.router.add_put("/ns/{ns}/blobs/{d}", ok)
+    app.router.add_post("/debug/x", ok)
+    app.router.add_get("/debug", ok)
+    resources = [(r.canonical, sorted(route.method for route in r))
+                 for r in app.router.resources()]
+    port, stop = await start("port" if w is http_lite else "aiohttp", app)
+    try:
+        async with aiohttp.ClientSession() as s:
+            for method, path in (("GET", "/blobs/0af"), ("GET", "/ns/a%2Fb/blobs/ff"),
+                                 ("PUT", "/ns/x/blobs/ee"), ("GET", "/debug"),
+                                 ("GET", "/nowhere"), ("DELETE", "/debug/x")):
+                async with s.request(method, f"http://127.0.0.1:{port}{path}") as r:
+                    await r.read()
+    finally:
+        await stop()
+    return {"seen": seen, "resources": resources}
+
+
 def test_file_response_takes_no_conditional_request(tmp_path):
     """A deliberate difference: the port's ``FileResponse`` ignores
-    ``If-None-Match`` (aiohttp answers 304 to its own ETag), and its
-    ``match_info`` is a plain ``dict``."""
+    ``If-None-Match`` (aiohttp answers 304 to its own ETag). Its
+    ``match_info`` is a ``dict`` with the route's canonical template, as
+    aiohttp's is."""
     (tmp_path / "f").write_bytes(b"abc")
 
     async def main():
@@ -479,7 +520,8 @@ def test_file_response_takes_no_conditional_request(tmp_path):
             w = WEB[kind]
 
             async def serve_file(req):
-                out.setdefault("info", {})[kind] = type(req.match_info) is dict
+                out.setdefault("info", {})[kind] = (
+                    isinstance(req.match_info, dict), req.match_info.route.resource.canonical)
                 return w.FileResponse(tmp_path / req.match_info["name"])
 
             app = w.Application()
@@ -498,7 +540,7 @@ def test_file_response_takes_no_conditional_request(tmp_path):
 
     out = asyncio.run(main())
     assert out["port"] == (200, b"abc") and out["aiohttp"] == (304, b"")
-    assert out["info"] == {"port": True, "aiohttp": False}
+    assert out["info"] == {"port": (True, "/{name}"), "aiohttp": (True, "/{name}")}
 
 
 def test_cleanup_closes_the_listener_and_every_open_connection():

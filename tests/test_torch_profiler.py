@@ -48,20 +48,38 @@ def _sampled(tmp_path, **kw) -> SamplingProfiler:
 @pytest.fixture
 def process_globals():
     """Nodes apply their sections to the process-global tracer, sampler
-    and SLO manager; give the rest of the session theirs back."""
-    from kraken_tpu_torch.utils.profiler import PROFILER
+    and SLO manager, and their muxes can turn on tracemalloc and start a
+    torch.profiler capture; give the rest of the session the state it had:
+    the configs, the sampler and the SLO evaluator running or not,
+    tracemalloc tracing or not, no capture held."""
+    import tracemalloc
+
+    from kraken_tpu_torch.utils import metrics
+    from kraken_tpu_torch.utils.profiler import HEAP, PROFILER
     from kraken_tpu_torch.utils.slo import SLO
     from kraken_tpu_torch.utils.trace import TRACER
 
     saved = (TRACER.config, TRACER.node, TRACER.on_trigger, PROFILER.config, PROFILER.node,
-             SLO.config, SLO.node)
+             SLO.config, SLO.node, SLO.canary_status)
+    slo_state = (dict(SLO._recorders), dict(SLO._alerts), SLO._last_eval)
+    sampling, evaluating, tracing = PROFILER.running, SLO.running, tracemalloc.is_tracing()
     yield
+    metrics.stop_profile_capture()
     PROFILER.stop()
     TRACER.apply(saved[0])
     TRACER.node, TRACER.on_trigger = saved[1], saved[2]
     PROFILER.config, PROFILER.node = saved[3], saved[4]
-    SLO.apply(saved[5])
-    SLO.node = saved[6]
+    if sampling:
+        PROFILER.start()
+    SLO.stop()
+    SLO.config, SLO.node, SLO.canary_status = saved[5], saved[6], saved[7]
+    SLO._recorders, SLO._alerts, SLO._last_eval = slo_state
+    if evaluating:
+        SLO.apply(saved[5])
+    if not tracing:
+        HEAP.stop()
+        if tracemalloc.is_tracing():
+            tracemalloc.stop()
 
 
 def test_sampler_start_stop_idempotent_and_live_reload():
