@@ -3165,6 +3165,433 @@ def operator_phase(root: str, card_name_power: str) -> dict:
             c.stop(kill=True)
 
 
+# -- phase 18, shards: the multi-core data plane beside the card --------------
+# Tracker, origin and two agents as CLI processes started together on ports
+# picked beforehand, ``--hasher cuda``. The origin and agent A fork worker
+# processes from a node whose CUDA context is live; agent B keeps the
+# shipped 0 and one conn a torrent, so that it pulls from A alone once A
+# holds pieces (the tracker hands out non-origin peers first).
+SHARDS_NS = "library/shards"
+SHARDS_BLOB = GiB
+SHARDS_KILL_AT = 0.25  # of (b)'s pieces landed in A's leech workers
+SHARDS_RESIZE_AT = 0.5  # of (b)'s pieces: the origin's SIGHUP, 2 workers to 1
+SHARDS_TIMEOUT_S = 300.0
+SHARDS_WAIT_S = 20.0  # for a stats tick, a respawn, a resize to show
+SHARDS_ORIGIN = "scheduler:\n  data_plane_workers: {}\n"
+SHARDS_A = "scheduler:\n  data_plane_workers: 2\n  leech_workers: 2\n"
+SHARDS_B = "scheduler:\n  conn_state:\n    max_open_conns_per_torrent: 1\n"
+SHARDS_KERNELS = ("sha256_uniform", "sha256_ragged", "pack_tiles_device",
+                  "sha256_packed_tiles", "gear_candidates", "transpose_only")
+
+
+def shard_sum(text: str, name: str, prefix: str) -> float:
+    """The sum of ``name`` over the shards whose label starts with
+    ``prefix`` (``data_plane_shard`` or ``leech_shard``)."""
+    head = f'{name}{{shard="{prefix}'
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(head))
+
+
+def worker_pids(pid: int) -> dict[str, int]:
+    """The live worker processes of node ``pid``, by their process name
+    (``kt-shard<n>``, ``kt-leech<n>``)."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        comm = stat[stat.index("(") + 1:stat.rindex(")")]
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) == pid and comm.startswith("kt-") and state != "Z":
+            out[comm] = int(entry)
+    return out
+
+
+def gone(pid: int) -> bool:
+    """Has process ``pid`` exited (absent, or a zombie awaiting its reaper)?"""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return True
+    return stat[stat.rindex(")") + 2] == "Z"
+
+
+def wait_metrics(child: "HerdChild", cond, what: str, timeout: float = SHARDS_WAIT_S) -> str:
+    """Poll ``child``'s /metrics until ``cond(text)`` holds; the text."""
+    t0 = time.perf_counter()
+    while True:
+        text = child.metrics()
+        if cond(text):
+            return text
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"shards: {what} within {timeout} s:\n" + child.log()[-3000:])
+        time.sleep(0.2)
+
+
+def require_shards_card_path(leg: str, got: dict) -> None:
+    """The gates that read where the verify ran: on the card in each
+    agent that pulled (no host batch, no hashlib byte), and the kernels of
+    the path launched in each process."""
+    for who in got["pulled_by"]:
+        if got[f"{who}_host_batches"] or got[f"{who}_cpu_bytes"] or not got[f"{who}_cuda_batches"]:
+            raise AssertionError(f"shards {leg}: {who} verified off the card: {got}")
+        if not got["launches"][who]["sha256_ragged"]:
+            raise AssertionError(f"shards {leg}: sha256_ragged did not launch at {who}: {got}")
+    if got.get("uploaded") and not got["launches"]["origin"]["sha256_uniform"]:
+        raise AssertionError(f"shards {leg}: sha256_uniform did not launch at the origin: {got}")
+
+
+def verify_counts(before: str, after: str) -> dict:
+    return {"cuda_batches": delta(before, after, "verify_batches_total", path="cuda"),
+            "host_batches": delta(before, after, "verify_batches_total", path="host"),
+            "pieces": delta(before, after, "verify_pieces_total"),
+            "cuda_bytes": delta(before, after, "hasher_bytes_total", hasher="cuda"),
+            "cpu_bytes": delta(before, after, "hasher_bytes_total", hasher="cpu")}
+
+
+def shards_phase(root: str, card_name_power: str, herd_pull_s: float) -> dict:
+    """Phase 18: pulls through forked seed-serve and leech workers beside
+    a live CUDA context. Returns the numbers and the children's counters
+    that the kernels line carries."""
+    from kraken_tpu_torch import Digest
+    from kraken_tpu_torch.configutil import load_config
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.deadline import RPCConfig
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+
+    children: list[HerdChild] = []
+    hasher = ["--hasher", HERD_HASHER]
+    try:
+        t_port, o_port = free_ports(2)
+        t_addr, o_addr = f"127.0.0.1:{t_port}", f"127.0.0.1:{o_port}"
+        o_cfg = herd_config(root, "origin", SHARDS_ORIGIN.format(2))
+        specs = [
+            ("tracker", "tracker", herd_config(root, "tracker"),
+             ["--port", str(t_port), "--origins", o_addr]),
+            ("origin", "origin", o_cfg, ["--port", str(o_port), "--tracker", t_addr, *hasher]),
+            ("agent_a", "agent", herd_config(root, "agent", SHARDS_A, name="agent_a"),
+             ["--tracker", t_addr, *hasher]),
+            ("agent_b", "agent", herd_config(root, "agent", SHARDS_B, name="agent_b"),
+             ["--tracker", t_addr, *hasher]),
+        ]
+        for name, component, cfg, flags in specs:
+            children.append(HerdChild(root, name, [component, "--config", cfg, *flags],
+                                      wait=False))
+        for c in children:
+            c.wait_ready()
+        tracker, origin, agent_a, agent_b = children
+        nodes = {"origin": origin, "agent_a": agent_a, "agent_b": agent_b}
+        workers = {name: worker_pids(c.proc.pid) for name, c in nodes.items()}
+        want = {"origin": {"kt-shard0", "kt-shard1"},
+                "agent_a": {"kt-shard0", "kt-shard1", "kt-leech0", "kt-leech1"},
+                "agent_b": set()}
+        if {k: set(v) for k, v in workers.items()} != want:
+            raise AssertionError(f"shards: workers {workers}, want {want}")
+        emit({"phase": "shards", "ready_s": {c.name: c.ready_s for c in children},
+              "addrs": {c.name: c.addr for c in children}, "workers": workers,
+              "what": "four processes started together; the origin and agent A fork their "
+                      "workers at start, after the CUDA context exists", "card": card_name_power})
+        start = {name: c.metrics() for name, c in nodes.items()}
+        pieces = SHARDS_BLOB // PIECE
+        blob_url = f"/namespace/{quote(SHARDS_NS, safe='')}/blobs/"
+
+        async def upload(blob: bytes, d) -> float:
+            client = BlobClient(origin.addr, HTTPClient(retries=0))
+            t0 = time.perf_counter()
+            try:
+                await asyncio.wait_for(client.upload(SHARDS_NS, d, blob, chunk_size=ORIGIN_CHUNK),
+                                       SHARDS_TIMEOUT_S)
+            finally:
+                await client.close()
+            return time.perf_counter() - t0
+
+        async def pull(agent: HerdChild, d) -> dict:
+            """GET through the agent's API: the response head marks the
+            swarm pull's end, the body the serve."""
+            timeout = http_lite.ClientTimeout(total=SHARDS_TIMEOUT_S)
+            async with http_lite.ClientSession(timeout=timeout) as session:
+                t0 = time.perf_counter()
+                async with session.get(f"http://{agent.addr}{blob_url}{d.hex}") as resp:
+                    head_s = time.perf_counter() - t0
+                    got = await resp.read()
+                pull_s = time.perf_counter() - t0
+            if resp.status != 200:
+                raise AssertionError(f"shards: GET on {agent.name} answered {resp.status}")
+            return {"got": got, "pull_s": pull_s, "swarm_s": head_s, "serve_s": pull_s - head_s}
+
+        def counters(before: dict, after: dict, pulled_by=(), uploaded=False) -> dict:
+            got = {"pulled_by": list(pulled_by), "uploaded": uploaded,
+                   "launches": {name: {k: delta(before[name], after[name],
+                                                "kernel_launches_total", kernel=k)
+                                       for k in SHARDS_KERNELS} for name in nodes}}
+            for name in nodes:
+                for k, v in verify_counts(before[name], after[name]).items():
+                    got[f"{name}_{k}"] = v
+            return got
+
+        # (a) 1 GiB uploaded, then pulled through agent A's leech workers
+        # from the origin's seed workers.
+        rng = np.random.default_rng(SEED + 180)
+        blob1 = rng.bytes(SHARDS_BLOB)
+        d1 = Digest.from_bytes(blob1)
+        m0 = {name: c.metrics() for name, c in nodes.items()}
+        upload1_s = asyncio.run(upload(blob1, d1))
+        m_up = {name: c.metrics() for name, c in nodes.items()}
+        ra = asyncio.run(pull(agent_a, d1))
+        if ra.pop("got") != blob1:
+            raise AssertionError("shards (a): the blob through agent A is not byte-identical")
+        a_text = wait_metrics(agent_a, lambda t: shard_sum(t, "data_plane_worker_pieces_total",
+                                                           "leech_shard")
+                              - shard_sum(m_up["agent_a"], "data_plane_worker_pieces_total",
+                                          "leech_shard") >= pieces,
+                              "A's leech workers counted fewer pieces than the blob's")
+        o_text = wait_metrics(origin, lambda t: shard_sum(t, "data_plane_worker_bytes_sent_total",
+                                                          "data_plane_shard")
+                              - shard_sum(m_up["origin"], "data_plane_worker_bytes_sent_total",
+                                          "data_plane_shard") >= SHARDS_BLOB,
+                              "the origin's seed workers sent less than the blob")
+        m1 = {"origin": o_text, "agent_a": a_text, "agent_b": agent_b.metrics()}
+        got_a = counters(m0, m1, pulled_by=["agent_a"], uploaded=True)
+        require_shards_card_path("a", got_a)
+        ragged_a = delta(m_up["agent_a"], m1["agent_a"], "kernel_launches_total",
+                         kernel="sha256_ragged")
+        leg_a = {
+            "upload_s": upload1_s, **ra, "gbps": SHARDS_BLOB / ra["pull_s"] / 1e9,
+            "herd_pull_s": herd_pull_s,
+            "origin_handoffs": delta(m0["origin"], m1["origin"], "data_plane_handoffs_total",
+                                     shard="data_plane_shard0")
+            + delta(m0["origin"], m1["origin"], "data_plane_handoffs_total",
+                    shard="data_plane_shard1"),
+            "origin_worker_bytes_sent": shard_sum(m1["origin"], "data_plane_worker_bytes_sent_total",
+                                                  "data_plane_shard")
+            - shard_sum(m0["origin"], "data_plane_worker_bytes_sent_total", "data_plane_shard"),
+            "a_leech_pieces": shard_sum(m1["agent_a"], "data_plane_worker_pieces_total",
+                                        "leech_shard")
+            - shard_sum(m_up["agent_a"], "data_plane_worker_pieces_total", "leech_shard"),
+            "a_verified_pieces": got_a["agent_a_pieces"],
+            "a_ragged_launches": ragged_a,
+            "a_rows_per_launch": got_a["agent_a_pieces"] / ragged_a if ragged_a else None,
+            "launches": got_a["launches"],
+        }
+        if leg_a["origin_handoffs"] < 1:
+            raise AssertionError(f"shards (a): the origin handed no conn to a worker: {leg_a}")
+        emit({"phase": "shards", "leg": "a", "blob_bytes": SHARDS_BLOB, "pieces": pieces,
+              **leg_a, "checks": ["blob byte-identical through agent A",
+                                  "every piece landed in A's leech workers' rings",
+                                  "the origin's seed workers sent the whole blob",
+                                  "every verify batch at A on the card"],
+              "card": card_name_power})
+
+        # (b) A fresh 1 GiB: A pulls it, B pulls it from A; A's leech worker
+        # holding a conn is SIGKILLed at SHARDS_KILL_AT of the pieces, and
+        # (d) the origin is resized from 2 workers to 1 at SHARDS_RESIZE_AT.
+        blob2 = rng.bytes(SHARDS_BLOB)
+        d2 = Digest.from_bytes(blob2)
+        m2_up = {name: c.metrics() for name, c in nodes.items()}
+        upload2_s = asyncio.run(upload(blob2, d2))
+        m2 = {name: c.metrics() for name, c in nodes.items()}
+        base_pieces = shard_sum(m2["agent_a"], "data_plane_worker_pieces_total", "leech_shard")
+        marks: dict = {}
+
+        def landed(text: str) -> float:
+            return shard_sum(text, "data_plane_worker_pieces_total", "leech_shard") - base_pieces
+
+        def chaos() -> None:
+            """Runs beside the pulls: start B once A holds pieces, kill the
+            leech worker, resize the origin."""
+            try:
+                wait_metrics(agent_a, lambda t: landed(t) >= 8, "A landed no piece of (b)",
+                             SHARDS_TIMEOUT_S)
+            finally:
+                marks["b_start"] = time.perf_counter()
+                marks["b_go"].set()
+            # Both leech workers hold a conn (the origin's, B's), so that
+            # the peer of the killed one redials onto the respawn, the
+            # least loaded.
+            text = wait_metrics(
+                agent_a, lambda t: landed(t) >= SHARDS_KILL_AT * pieces and all(
+                    metric(t, "data_plane_worker_conns", shard=f"leech_shard{n}") >= 1
+                    for n in (0, 1)),
+                "A's two leech workers never both held a conn", SHARDS_TIMEOUT_S)
+            shard = max((0, 1), key=lambda n: metric(text, "data_plane_worker_conns",
+                                                     shard=f"leech_shard{n}"))
+            pid = worker_pids(agent_a.proc.pid)[f"kt-leech{shard}"]
+            marks.update(killed_shard=shard, killed_pid=pid, kill_at_pieces=landed(text),
+                         before_kill=text)
+            os.kill(pid, signal.SIGKILL)
+            marks["kill_t"] = time.perf_counter()
+            t0 = time.perf_counter()
+            while worker_pids(agent_a.proc.pid).get(f"kt-leech{shard}") in (None, pid):
+                if time.perf_counter() - t0 > SHARDS_WAIT_S:
+                    raise AssertionError("shards (b): the killed leech worker was not respawned")
+                time.sleep(0.05)
+            marks["respawn_s"] = time.perf_counter() - marks["kill_t"]
+            text = wait_metrics(agent_a, lambda t: landed(t) >= SHARDS_RESIZE_AT * pieces,
+                                "A stalled after the kill", SHARDS_TIMEOUT_S)
+            marks["before_resize"] = origin.metrics()
+            herd_config(root, "origin", SHARDS_ORIGIN.format(1))
+            origin.proc.send_signal(signal.SIGHUP)
+            marks["resize_t"] = time.perf_counter()
+
+        async def legs_b() -> dict:
+            marks["b_go"] = threading.Event()
+            marks["t0"] = time.perf_counter()
+            side = asyncio.create_task(asyncio.to_thread(chaos))
+            a_task = asyncio.create_task(pull(agent_a, d2))
+            await asyncio.to_thread(marks["b_go"].wait, SHARDS_TIMEOUT_S)
+            b_task = asyncio.create_task(pull(agent_b, d2))
+            try:
+                await side
+            finally:
+                ra_, rb_ = await asyncio.gather(a_task, b_task)
+            return {"a": ra_, "b": rb_}
+
+        rb = asyncio.run(legs_b())
+        for who, r in rb.items():
+            if r.pop("got") != blob2:
+                raise AssertionError(f"shards (b): the blob through agent {who.upper()} "
+                                     "is not byte-identical")
+        shard = marks["killed_shard"]
+        label = f"leech_shard{shard}"
+        m3 = {name: c.metrics() for name, c in nodes.items()}
+        a_crashes = {n: delta(m2["agent_a"], m3["agent_a"], "data_plane_worker_crashes_total",
+                              shard=s) for n, s in (("leech0", "leech_shard0"),
+                                                   ("leech1", "leech_shard1"),
+                                                   ("shard0", "data_plane_shard0"),
+                                                   ("shard1", "data_plane_shard1"))}
+        respawn_handoffs = delta(marks["before_kill"], m3["agent_a"],
+                                 "data_plane_handoffs_total", shard=label)
+        closes = {r: delta(m2["agent_a"], m3["agent_a"], "conn_closed_total", reason=r)
+                  for r in ("worker_exit", "misbehavior")}
+        origin_crashes = delta(m2["origin"], m3["origin"], "data_plane_worker_crashes_total",
+                               shard="data_plane_shard0") + delta(
+            m2["origin"], m3["origin"], "data_plane_worker_crashes_total",
+            shard="data_plane_shard1")
+        want_crashes = {k: int(k == f"leech{shard}") for k in a_crashes}
+        if a_crashes != want_crashes or origin_crashes:
+            raise AssertionError(f"shards (b): crashes {a_crashes} (origin {origin_crashes}), "
+                                 f"want {want_crashes}")
+        if respawn_handoffs < 1:
+            raise AssertionError(f"shards (b): the respawned {label} took no conn")
+        if closes["worker_exit"] < 1 or closes["misbehavior"]:
+            raise AssertionError(f"shards (b): conn closes at A {closes}: the dead worker's "
+                                 "conns must close as the node's fault, none as a peer's")
+        got_b = counters(m2_up, m3, pulled_by=["agent_a", "agent_b"], uploaded=True)
+        require_shards_card_path("b", got_b)
+        emit({"phase": "shards", "leg": "b", "blob_bytes": SHARDS_BLOB, "upload_s": upload2_s,
+              "a": rb["a"], "b": rb["b"], "b_started_after_s": marks["b_start"] - marks["t0"],
+              "killed_after_s": marks["kill_t"] - marks["t0"],
+              "killed": {"shard": label, "pid": marks["killed_pid"],
+                         "at_pieces": marks["kill_at_pieces"]},
+              "respawn_s": marks["respawn_s"], "respawn_handoffs": respawn_handoffs,
+              "crashes": a_crashes, "conn_closes": closes, "launches": got_b["launches"],
+              "a_verified_pieces": got_b["agent_a_pieces"],
+              "b_verified_pieces": got_b["agent_b_pieces"],
+              "checks": ["both pulls byte-identical",
+                         f"data_plane_worker_crashes_total{{shard={label}}} +1, no other",
+                         "the killed worker's conns closed as worker_exit, none as misbehavior",
+                         f"the respawned {label} took a conn",
+                         "every verify batch at A and B on the card"],
+              "card": card_name_power})
+
+        # (d) The origin's resize, applied during (b): the gauge reads 1,
+        # one worker is left, and the serves it had in flight finished
+        # (both pulls are whole).
+        o_text = wait_metrics(origin, lambda t: metric(t, "data_plane_workers",
+                                                       component="origin") == 1
+                              and metric(t, "data_plane_workers_alive", component="origin") == 1,
+                              "the origin's resize to 1 did not show")
+        left = worker_pids(origin.proc.pid)
+        if set(left) != {"kt-shard0"} or '"data_plane_workers": 1' not in origin.log():
+            raise AssertionError(f"shards (d): the origin's workers after the resize: {left}")
+        if "exited non-zero" in origin.log():
+            raise AssertionError("shards (d): the retired worker exited non-zero:\n"
+                                 + origin.log()[-3000:])
+        before = marks["before_resize"]
+        emit({"phase": "shards", "leg": "d", "what": "SIGHUP data_plane_workers 2 -> 1 at the "
+              "origin while (b) pulled",
+              "applied_after_s": marks["resize_t"] - marks["kill_t"],
+              "workers_gauge": metric(o_text, "data_plane_workers", component="origin"),
+              "alive_gauge": metric(o_text, "data_plane_workers_alive", component="origin"),
+              "conns_before": {s: metric(before, "data_plane_worker_conns", shard=s)
+                               for s in ("data_plane_shard0", "data_plane_shard1")},
+              "serves_after": shard_sum(o_text, "data_plane_worker_serves_total",
+                                        "data_plane_shard")
+              - shard_sum(before, "data_plane_worker_serves_total", "data_plane_shard"),
+              "workers_left": left, "card": card_name_power})
+
+        # (c) B pulls (a)'s blob: its one conn goes to A, which serves it
+        # from a seed worker through sendfile.
+        m4 = {name: c.metrics() for name, c in nodes.items()}
+        rc = asyncio.run(pull(agent_b, d1))
+        if rc.pop("got") != blob1:
+            raise AssertionError("shards (c): the blob through agent B is not byte-identical")
+        a_text = wait_metrics(agent_a, lambda t: shard_sum(t, "data_plane_worker_bytes_sent_total",
+                                                           "data_plane_shard")
+                              - shard_sum(m4["agent_a"], "data_plane_worker_bytes_sent_total",
+                                          "data_plane_shard") >= SHARDS_BLOB,
+                              "A's seed workers sent less than the blob")
+        m5 = {"origin": origin.metrics(), "agent_a": a_text, "agent_b": agent_b.metrics()}
+        got_c = counters(m4, m5, pulled_by=["agent_b"])
+        require_shards_card_path("c", got_c)
+        sent = {s: delta(m4["agent_a"], m5["agent_a"], "data_plane_worker_bytes_sent_total",
+                         shard=s) for s in ("data_plane_shard0", "data_plane_shard1")}
+        origin_sent = shard_sum(m5["origin"], "data_plane_worker_bytes_sent_total",
+                                "data_plane_shard") - shard_sum(
+            m4["origin"], "data_plane_worker_bytes_sent_total", "data_plane_shard")
+        emit({"phase": "shards", "leg": "c", "blob_bytes": SHARDS_BLOB, **rc,
+              "gbps": SHARDS_BLOB / rc["pull_s"] / 1e9, "a_seed_bytes_sent": sent,
+              "origin_bytes_sent": origin_sent, "b_verified_pieces": got_c["agent_b_pieces"],
+              "launches": got_c["launches"],
+              "checks": ["blob byte-identical through agent B",
+                         "A's seed workers sent the whole blob by sendfile"],
+              "card": card_name_power})
+        end = m5
+
+        # (e) SIGTERM: every child exits 0 after its drain, and no worker
+        # outlives its node.
+        pids = {name: worker_pids(c.proc.pid) for name, c in nodes.items()}
+        drains = {}
+        for c, component in ((agent_b, "agent"), (agent_a, "agent"), (origin, "origin"),
+                             (tracker, "tracker")):
+            cfg = load_config(str(REPO / "config" / component / "base.yaml"))
+            limit = RPCConfig.from_dict(cfg.get("rpc")).drain_timeout_seconds
+            t0 = time.perf_counter()
+            rc_ = c.stop()
+            drains[c.name] = time.perf_counter() - t0
+            if rc_ != 0 or drains[c.name] > limit or "drain quiesced" not in c.log():
+                raise AssertionError(f"shards (e): {c.name} exit {rc_} after "
+                                     f"{drains[c.name]:.1f} s:\n" + c.log()[-3000:])
+            if "exited non-zero" in c.log():
+                raise AssertionError(f"shards (e): a worker of {c.name} exited non-zero:\n"
+                                     + c.log()[-3000:])
+        children.clear()
+        t0 = time.perf_counter()
+        left = {}
+        while True:
+            left = {name: [p for p in ps.values() if not gone(p)] for name, ps in pids.items()}
+            if not any(left.values()) or time.perf_counter() - t0 > 10.0:
+                break
+            time.sleep(0.1)
+        if any(left.values()):
+            raise AssertionError(f"shards (e): workers outlived their nodes: {left}")
+        emit({"phase": "shards", "leg": "e", "drain_to_exit_s": drains, "workers_reaped": pids,
+              "card": card_name_power})
+        launches = {name: {k: delta(start[name], end[name], "kernel_launches_total", kernel=k)
+                           for k in SHARDS_KERNELS} for name in nodes}
+        return {"launches": launches, "pull_a_s": ra["pull_s"], "pull_c_s": rc["pull_s"],
+                "rows_per_launch": leg_a["a_rows_per_launch"]}
+    finally:
+        for c in children:
+            c.stop(kill=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4018,6 +4445,23 @@ def main() -> int:
     if any(own.read().values()):
         raise AssertionError(f"operator: this process launched kernels: {own.read()}")
 
+    # -- 18. shards: pulls through forked workers beside the CUDA context -
+    gc.collect()
+    work.mkdir(exist_ok=True)
+    shards_start = time.perf_counter()
+    own.reset()
+    try:
+        sh = shards_phase(tempfile.mkdtemp(dir=work), card.name_power, herd["pull_s"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    shards_secs = time.perf_counter() - shards_start
+    if any(own.read().values()):
+        raise AssertionError(f"shards: this process launched kernels: {own.read()}")
+
+    def shards_launches(name: str) -> dict:
+        """Phase 18's launches of one wrapper, by process."""
+        return {proc: sh["launches"][proc][name] for proc in ("origin", "agent_a", "agent_b")}
+
     def operator_launches(name: str) -> dict:
         """Phase 17's launches of one wrapper, by process."""
         return {proc: op["launches"][proc].get(name, 0) for proc in ("origin", "agent")}
@@ -4055,6 +4499,7 @@ def main() -> int:
          "tracker_launches": fleet["launches"]["sha256_uniform"],
          "origin_http_launches": origin_launches("sha256_uniform"), "delta_launches": delta_launches("sha256_uniform"),
          "operator_launches": operator_launches("sha256_uniform"),
+         "shards_launches": shards_launches("sha256_uniform"),
          "herd_launches": {"origin": hc["origin_launches"]["sha256_uniform"],
                            "agent": hc["agent_launches"]["sha256_uniform"]},
          "herd_origin_ingest_windows": hc["origin_ingest_windows"],
@@ -4071,11 +4516,13 @@ def main() -> int:
          "tracker_launches": fleet["launches"]["sha256_ragged"],
          "origin_http_launches": origin_launches("sha256_ragged"), "delta_launches": delta_launches("sha256_ragged"),
          "operator_launches": operator_launches("sha256_ragged"),
+         "shards_launches": shards_launches("sha256_ragged"),
          "operator_pull_busy_share": op["busy_share"],
          "herd_launches": {"origin": hc["origin_launches"]["sha256_ragged"],
                            "agent": hc["agent_launches"]["sha256_ragged"]},
          "herd_verify_batches": hc["agent_cuda_batches"],
          "herd_rows_per_batch": hc["agent_verified_pieces"] / hc["agent_cuda_batches"],
+         "shards_rows_per_launch": sh["rows_per_launch"],
          "herd_origin_dedup_chunks": hc["origin_dedup_chunks"],
          "front_door_launches": {"origin": fc["origin_launches"]["sha256_ragged"],
                                  "agent": fc["agent_launches"]["sha256_ragged"]},
@@ -4091,6 +4538,7 @@ def main() -> int:
          "bound_by": pack_bound_by, "library_ms": pack_library_ms,
          "origin_http_launches": origin_launches("pack_tiles_device"), "delta_launches": delta_launches("pack_tiles_device"),
          "operator_launches": operator_launches("pack_tiles_device"),
+         "shards_launches": shards_launches("pack_tiles_device"),
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 4 MiB"},
         {"name": "sha256_packed_tiles", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -4101,6 +4549,7 @@ def main() -> int:
          "ms_at_plain_shape": packed16_ms,
          "origin_http_launches": origin_launches("sha256_packed_tiles"), "delta_launches": delta_launches("sha256_packed_tiles"),
          "operator_launches": operator_launches("sha256_packed_tiles"),
+         "shards_launches": shards_launches("sha256_packed_tiles"),
          **sha_entry(packed_main, PACKED_KERNEL)},
         {"name": "gear_candidates", "kernel": GEAR_KERNEL, "route": "cuda",
          "source": "kraken_tpu_torch/csrc/gear.cu",
@@ -4112,6 +4561,7 @@ def main() -> int:
          "sass_per_byte": gear_sass,
          "origin_http_launches": origin_launches("gear_candidates"), "delta_launches": delta_launches("gear_candidates"),
          "operator_launches": operator_launches("gear_candidates"),
+         "shards_launches": shards_launches("gear_candidates"),
          "herd_launches": {"origin": hc["origin_launches"]["gear_candidates"],
                            "agent": hc["agent_launches"]["gear_candidates"]},
          "front_door_launches": {"origin": fc["origin_launches"]["gear_candidates"],
@@ -4123,7 +4573,8 @@ def main() -> int:
          "replaces": "bench_transpose.py:80", "launches": main_launches["transpose_only"],
          "relayout_launches": relayout_launches,
          "origin_http_launches": origin_launches("transpose_only"), "delta_launches": delta_launches("transpose_only"),
-         "operator_launches": operator_launches("transpose_only"), "max_abs_err": t_err,
+         "operator_launches": operator_launches("transpose_only"),
+         "shards_launches": shards_launches("transpose_only"), "max_abs_err": t_err,
          "ms": full["transpose_only_ms"], "plain_ms": full["transpose_only_plain_ms"],
          "bound_ms": t_bound["bound_ms"], "bound_by": t_bound["bound_by"], "library_ms": None,
          "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
@@ -4133,6 +4584,7 @@ def main() -> int:
         "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,
         "herd_seconds": herd_secs, "front_door_seconds": front_secs,
         "delta_seconds": delta_secs, "operator_seconds": operator_secs,
+        "shards_seconds": shards_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,10 @@ one node per process; tests run several per process. Config keys follow the comp
   per-endpoint middleware and the debug mux (``instrument_app``; a
   ``cuda`` node's ``/debug/torch-profile`` traces the card), the origin
   and the agent their resource sentinel, the agent its canary prober,
-  each on and off by SIGHUP. The multi-core data plane's worker counts
-  are refused by ``SchedulerConfig`` (A7g).
+  each on and off by SIGHUP. The multi-core data plane's workers
+  (``scheduler.data_plane_workers``, ``scheduler.leech_workers``) are
+  forked from the node after its CUDA context exists, touch nothing of
+  torch, and leave every verify to the node (``p2p/shardpool.py``).
 - Every node's ``stop()`` leaves the process as it found it for what the
   node started: the SLO evaluator and the sampler if its own ``apply``
   started them, its loop-lag monitor, sentinel and prober, ``tracemalloc``

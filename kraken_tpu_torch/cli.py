@@ -489,8 +489,10 @@ def main(argv: list[str] | None = None) -> None:
                                " 0 = unthrottled)")
     p_origin.add_argument("--data-plane-workers", type=int, default=None,
                           help="seed-serve worker processes (overrides"
-                               " scheduler.data_plane_workers); only 0 is"
-                               " taken until ROADMAP A7g")
+                               " scheduler.data_plane_workers): inbound"
+                               " seed conns are fd-passed to them and"
+                               " pieces go out via sendfile, off the main"
+                               " loop; 0 = single-loop serving")
 
     p_agent = sub.add_parser("agent")
     _common(p_agent)
@@ -513,12 +515,14 @@ def main(argv: list[str] | None = None) -> None:
                               " 0 = unthrottled)")
     p_agent.add_argument("--data-plane-workers", type=int, default=None,
                          help="seed-serve worker processes (overrides"
-                              " scheduler.data_plane_workers); only 0 is"
-                              " taken until ROADMAP A7g")
+                              " scheduler.data_plane_workers); a completed"
+                              " agent seeds its swarm off the download loop")
     p_agent.add_argument("--leech-workers", type=int, default=None,
                          help="download-pump worker processes (overrides"
-                              " scheduler.leech_workers); only 0 is taken"
-                              " until ROADMAP A7g")
+                              " scheduler.leech_workers); active downloads"
+                              " move their recv+parse+pwrite off the main"
+                              " loop, verify stays batched in the parent"
+                              " (on the card with the cuda hasher)")
 
     p_bi = sub.add_parser("build-index")
     _common(p_bi)

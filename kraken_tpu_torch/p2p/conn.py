@@ -15,8 +15,8 @@ per batch -- control frames piggyback on payload batches for free), and
 the recv loop hands PIECE_PAYLOAD frames straight to the dispatcher's
 ``payload_handler`` callback, bypassing the recv queue for the hot type.
 
-The forked leech workers' stand-in conn (``LeechConnProxy``) waits for
-the multi-core data plane.
+:class:`LeechConnProxy` stands in for a download conn whose socket lives
+in a forked leech worker (``p2p/shardpool.py``).
 """
 
 from __future__ import annotations
@@ -326,6 +326,181 @@ class Conn:
             t.cancel()
         # Messages parked in the recv queue die with the conn: return
         # their pooled buffers (the leak detector counts every lease).
+        while True:
+            try:
+                queued = self._recv_q.get_nowait()
+            except asyncio.QueueEmpty:
+                break
+            if queued is not None:
+                queued.release()
+
+    async def wait_closed(self) -> None:
+        await asyncio.shield(self.closed)
+
+
+class LeechConnProxy:
+    """Main-loop stand-in for a download conn whose SOCKET lives in a
+    forked leech worker (p2p/shardpool.py).
+
+    The dispatcher talks to it exactly like a :class:`Conn` -- same
+    ``send``/``recv``/``close``/``closed`` surface, same misbehavior and
+    ``close_reason`` contract -- but there are no pumps here: the worker
+    runs recv + frame parse off the main loop and the shardpool's
+    control-channel reader feeds this proxy via the ``on_*`` hooks.
+    Outbound frames (piece requests, announce fanout, PEX) are packed
+    and shipped to the worker, which writes them to the real socket.
+    PIECE_PAYLOAD arrivals come back as shared-memory-ring Messages via
+    :meth:`deliver_payload`, so the payload bytes never transit the
+    control channel.
+
+    The callables are injected (rather than holding a pool reference)
+    so this module never imports shardpool: ``send_frames`` takes
+    ``[(mtype, header_dict, payload_bytes), ...]`` and ``close_remote``
+    takes ``(reason, misbehavior)`` -- both sync and best-effort, like
+    every control-channel send.
+    """
+
+    def __init__(
+        self,
+        peer_id: PeerID,
+        info_hash: InfoHash,
+        *,
+        send_frames: Callable[[list], None],
+        close_remote: Callable[[str, bool], None],
+    ):
+        self.peer_id = peer_id
+        self.info_hash = info_hash
+        self._send_frames = send_frames
+        self._close_remote = close_remote
+        self._recv_q: asyncio.Queue[Optional[Message]] = asyncio.Queue(_RECV_QUEUE)
+        self._closed_fut: Optional[asyncio.Future] = None
+        self.close_reason: Optional[str] = None
+        self.close_detail: str = ""
+        self.misbehavior = False
+        self.payload_handler: Optional[Callable[[Message], None]] = None
+        self.bytes_sent = 0
+        self.bytes_received = 0
+        # Set when the WORKER already tore the conn down (closed verdict
+        # or worker death): closing then must not echo a close back at a
+        # cid the worker no longer knows (or a worker that no longer
+        # exists).
+        self._remote_gone = False
+
+    @property
+    def closed(self) -> asyncio.Future:
+        if self._closed_fut is None:
+            self._closed_fut = asyncio.get_running_loop().create_future()
+        return self._closed_fut
+
+    def start(self) -> None:
+        self.closed  # materialize on the dispatcher's loop; pumps are remote
+
+    def set_payload_handler(self, handler: Callable[[Message], None]) -> None:
+        self.payload_handler = handler
+
+    async def send(self, msg: Message) -> None:
+        if self._closed_fut is not None and self._closed_fut.done():
+            raise ConnClosedError(str(self.peer_id))
+        payload = msg.payload
+        if isinstance(payload, memoryview):
+            payload = bytes(payload)
+        self._send_frames([(int(msg.type), msg.header, payload)])
+        self.bytes_sent += len(payload)
+
+    async def recv(self) -> Message:
+        try:
+            msg = self._recv_q.get_nowait()
+        except asyncio.QueueEmpty:
+            if self._closed_fut is not None and self._closed_fut.done():
+                raise ConnClosedError(str(self.peer_id))
+            get = asyncio.ensure_future(self._recv_q.get())
+            try:
+                done, _pending = await asyncio.wait(
+                    {get, self.closed}, return_when=asyncio.FIRST_COMPLETED
+                )
+            except asyncio.CancelledError:
+                get.cancel()
+                raise
+            if get not in done:
+                get.cancel()
+                raise ConnClosedError(str(self.peer_id))
+            msg = await get
+        if msg is None:
+            raise ConnClosedError(str(self.peer_id))
+        return msg
+
+    # -- shardpool-facing hooks (control-channel reader, same loop) -----
+
+    def on_frame(self, mtype: int, header: dict, payload: bytes = b"") -> None:
+        """A control frame the worker chose to forward (announce /
+        bitfield / complete / PEX); ``payload`` carries the small
+        inline bytes of a BITFIELD, empty otherwise."""
+        if self.close_reason is not None:
+            return
+        msg = Message(MsgType(mtype), header or {}, payload or b"")
+        try:
+            self._recv_q.put_nowait(msg)
+        except asyncio.QueueFull:
+            # The dispatcher pump stopped draining (wedged peer task):
+            # same terminal outcome as a Conn whose recv loop died.
+            self.close(reason="recv_overflow")
+
+    def deliver_payload(self, msg: Message) -> None:
+        """A completed piece: ``msg.payload`` is a view into the shared
+        ring, ``msg.lease`` the slot lease (idempotent release, like any
+        pooled payload)."""
+        if self.close_reason is not None:
+            msg.release()
+            return
+        self.bytes_received += len(msg.payload)
+        if self.payload_handler is not None:
+            self.payload_handler(msg)
+            return
+        try:
+            self._recv_q.put_nowait(msg)
+        except asyncio.QueueFull:
+            msg.release()
+            self.close(reason="recv_overflow")
+
+    def on_remote_closed(self, reason: str, misbehavior: bool = False) -> None:
+        """The worker's side of the conn died first (peer hung up, wire
+        error, worker exit): surface it exactly like a local Conn pump
+        failing, misbehavior verdict intact so the blacklist escalation
+        survives the fork boundary."""
+        self._remote_gone = True
+        self.close(reason=reason, misbehavior=misbehavior)
+
+    # -------------------------------------------------------------------
+
+    def close(
+        self,
+        reason: str = "local_close",
+        detail: str = "",
+        misbehavior: bool = False,
+    ) -> None:
+        if misbehavior:
+            self.misbehavior = True
+        if self.close_reason is not None:
+            return
+        self.close_reason = reason
+        self.close_detail = detail
+        from kraken_tpu_torch.utils.metrics import REGISTRY
+
+        REGISTRY.counter(
+            "conn_closed_total", "P2P conns closed, by terminal cause"
+        ).inc(reason=reason)
+        fut = self._closed_fut
+        if fut is None:
+            try:
+                fut = self.closed
+            except RuntimeError:
+                fut = None
+        if fut is not None and not fut.done():
+            fut.set_result(None)
+        if not self._remote_gone:
+            self._close_remote(reason, self.misbehavior)
+        # Undelivered payloads die with the conn: their slot leases must
+        # flow back to the ring or the leak audit trips.
         while True:
             try:
                 queued = self._recv_q.get_nowait()

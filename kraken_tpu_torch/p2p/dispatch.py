@@ -437,7 +437,14 @@ class Dispatcher:
             else contextlib.nullcontext()
         )
         with cm:
-            completed = await self.torrent.write_piece(idx, data)  # raises PieceError
+            # Ring-backed payloads (leech shard plane) carry a lease
+            # whose remote_write pwrites in the worker that already
+            # holds the bytes -- verify here reads the shared mapping
+            # zero-copy, and only the verdict crosses the fork.
+            rw = getattr(msg.lease, "remote_write", None)
+            completed = await self.torrent.write_piece(
+                idx, data, remote_write=rw
+            )  # raises PieceError
         self.requests.clear_piece(idx)
         # Fan the new piece out to the swarm.
         for other in list(self._peers.values()):

@@ -13,12 +13,12 @@ Collaborators are injected as small interfaces so in-process swarm tests
 - ``announce_client.announce(digest, info_hash, namespace, complete)
   -> (list[PeerInfo], interval_seconds)``
 
-The port's copy of ``kraken_tpu.p2p.scheduler`` without the multi-core
-data plane (the forked seed-serve and leech workers of the reference's
-``p2p/shardpool.py``): every conn runs on this loop, and a config that
-asks for workers is refused (:func:`refuse_data_plane_workers`). Each
-agent's received pieces are verified by its archive's
-``BatchedVerifier``, on the card by default.
+The port's copy of ``kraken_tpu.p2p.scheduler``, with its multi-core data
+plane (``p2p/shardpool.py``): ``data_plane_workers`` forked seed-serve
+workers and ``leech_workers`` forked download pumps take conns off this
+loop after the handshake. Every received piece is still verified here,
+by the archive's ``BatchedVerifier`` -- on the card by default -- and
+never in a worker.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import logging
+import os
 import random
 import secrets
 from typing import Optional, Protocol
@@ -37,6 +38,7 @@ from kraken_tpu_torch.p2p.conn import (
     Conn,
     ConnClosedError,
     HandshakeResult,
+    LeechConnProxy,
     PeerBusyError,
     handshake_inbound,
     handshake_outbound,
@@ -53,6 +55,7 @@ from kraken_tpu_torch.p2p.pex import (
     PexManager,
 )
 from kraken_tpu_torch.p2p.piecerequest import RequestManager
+from kraken_tpu_torch.p2p.shardpool import ShardPool
 from kraken_tpu_torch.p2p.storage import Torrent
 from kraken_tpu_torch.p2p.wire import Message, WireError, send_message
 from kraken_tpu_torch.utils import failpoints, trace
@@ -94,23 +97,6 @@ class AnnounceClient(Protocol):
 
 class TorrentArchive(Protocol):
     def create_torrent(self, metainfo: MetaInfo) -> Torrent: ...
-
-
-def refuse_data_plane_workers(config: "SchedulerConfig") -> None:
-    """Raise ``ValueError`` when ``config`` asks for worker processes of
-    the multi-core data plane (``data_plane_workers`` or
-    ``leech_workers`` above 0), which the port does not have yet (ROADMAP
-    A7g): running such a config on the main loop alone would quietly
-    serve it single-core."""
-    asked = {
-        k: getattr(config, k) for k in ("data_plane_workers", "leech_workers")
-        if getattr(config, k)
-    }
-    if asked:
-        raise ValueError(
-            f"scheduler {asked}: the multi-core data plane (ShardPool) is"
-            " not ported yet (ROADMAP A7g); set both to 0"
-        )
 
 
 class SchedulerConfig:
@@ -162,18 +148,23 @@ class SchedulerConfig:
         # recv payload pool's retained-byte budget.
         self.wire_send_batch = wire_send_batch
         self.bufpool_budget_mb = bufpool_budget_mb
-        # The multi-core data plane (the reference's p2p/shardpool.py:
-        # seed-serve and leech worker processes; docs/OPERATIONS.md
-        # "Data-plane workers", "Leech shard plane") is not in the port:
-        # a config that asks for workers is refused, never quietly run
-        # on the main loop alone (refuse_data_plane_workers).
-        # leech_ring_mb sizes EACH leech worker's ring; as in the
-        # reference, nothing reads it while leech_workers is 0, which is
-        # all the port takes.
+        # Multi-core seed-serve plane (p2p/shardpool.py; docs/
+        # OPERATIONS.md "Data-plane workers"): fork this many worker
+        # processes and hand them seed-only inbound conns, served via
+        # sendfile off the main loop. 0 = everything on the main loop.
+        # SIGHUP-resizable.
         self.data_plane_workers = data_plane_workers
+        # Multi-core DOWNLOAD plane (p2p/shardpool.py leech mode; docs/
+        # OPERATIONS.md "Leech shard plane"): fork this many download
+        # workers; active-download conns hand off post-handshake, their
+        # recv pump + pwrite run off the main loop and piece payloads
+        # come back through a shared-memory ring for batched verify.
+        # 0 = downloads stay on the main loop. SIGHUP-resizable.
+        # leech_ring_mb sizes EACH worker's ring (4 MiB slots; a
+        # torrent whose piece length exceeds one slot stays on the main
+        # loop).
         self.leech_workers = leech_workers
         self.leech_ring_mb = leech_ring_mb
-        refuse_data_plane_workers(self)
         # PER-AGENT announce concurrency cap. The rate cap bounds how
         # many announces START per second; during a full tracker outage
         # every in-flight announce hangs to its timeout, and without a
@@ -303,6 +294,17 @@ class Scheduler:
             budget_bytes=self.config.bufpool_budget_mb << 20
         )
         self._server: Optional[asyncio.base_events.Server] = None
+        # Multi-core seed-serve plane (p2p/shardpool.py): created at
+        # start() when data_plane_workers > 0; seed-only inbound conns
+        # are handed to worker processes via fd passing and served with
+        # sendfile, off this loop entirely.
+        self._shardpool: Optional[ShardPool] = None
+        # Multi-core download plane (shardpool in leech mode): created at
+        # start() when leech_workers > 0; active-download conns hand off
+        # post-handshake and the dispatcher drives a LeechConnProxy --
+        # recv pump, frame parse, and pwrite all run in the workers,
+        # piece payloads come home through each worker's shared ring.
+        self._leech_pool: Optional[ShardPool] = None
         self._announce_queue = AnnounceQueue()
         self._announce_pump_task: Optional[asyncio.Task] = None
         self._announce_tasks: set[asyncio.Task] = set()
@@ -344,19 +346,32 @@ class Scheduler:
         timeouts, and conn limits apply from the next tick or admission
         decision; per-torrent dispatchers keep their pipeline settings
         until their torrent is recreated (new torrents use the new
-        values). No torrent state is dropped. A config that asks for the
-        multi-core data plane's workers raises ``ValueError`` and is not
-        applied."""
-        refuse_data_plane_workers(config)
+        values). No torrent state is dropped. The worker pools resize
+        live: grown shards spawn, shrunk shards drain and exit, and a
+        pool asked for after start starts now."""
         self.config = config
         self.conn_state.reconfigure(config.conn_state)
         self._bufpool.set_budget(config.bufpool_budget_mb << 20)
+        pool = self._shardpool
+        if pool is not None:
+            pool.reconfigure(config.conn_churn_idle)
+            pool.resize(config.data_plane_workers)
+        elif config.data_plane_workers > 0 and self._server is not None:
+            self._start_shardpool()
+        leech = self._leech_pool
+        if leech is not None:
+            leech.reconfigure(config.conn_churn_idle)
+            leech.resize(config.leech_workers)
+        elif config.leech_workers > 0 and self._server is not None:
+            self._start_leech_pool()
         _log.info(
             "scheduler config reloaded",
             extra={
                 "wire_send_batch": config.wire_send_batch,
                 "bufpool_budget_mb": config.bufpool_budget_mb,
                 "max_announce_rate": config.max_announce_rate,
+                "data_plane_workers": config.data_plane_workers,
+                "leech_workers": config.leech_workers,
             },
         )
 
@@ -369,12 +384,46 @@ class Scheduler:
         self._pex.reconfigure(config)
         _log.info("pex config reloaded")
 
+    def _start_shardpool(self) -> None:
+        self._shardpool = ShardPool(
+            self.config.data_plane_workers,
+            churn_idle_seconds=self.config.conn_churn_idle,
+            on_conn_closed=self._shard_conn_closed,
+            component="origin" if self.is_origin else "agent",
+        )
+        self._shardpool.start()
+
+    def _start_leech_pool(self) -> None:
+        # Slots match the metainfo generator's default 4 MiB piece
+        # class (origin/metainfogen.py): ring_mb / 4 MiB slots per
+        # worker. The slab is anonymous MAP_SHARED -- pages materialize
+        # on first touch, so oversized slots for short-piece torrents
+        # cost address space, not RSS. Torrents with longer pieces
+        # (8/16 MiB tiers for >= 2 GiB blobs) skip the plane at
+        # handoff gating.
+        slot_bytes = 4 << 20
+        self._leech_pool = ShardPool(
+            self.config.leech_workers,
+            churn_idle_seconds=self.config.conn_churn_idle,
+            component=(
+                "origin-leech" if self.is_origin else "agent-leech"
+            ),
+            leech=True,
+            ring_slots=max(1, (self.config.leech_ring_mb << 20) // slot_bytes),
+            slot_bytes=slot_bytes,
+        )
+        self._leech_pool.start()
+
     async def start(self) -> None:
         self._server = await asyncio.start_server(
             self._accept, host=self.ip, port=self.port, limit=_WIRE_BUF
         )
         if self.port == 0:
             self.port = self._server.sockets[0].getsockname()[1]
+        if self.config.data_plane_workers > 0:
+            self._start_shardpool()
+        if self.config.leech_workers > 0:
+            self._start_leech_pool()
         self._announce_pump_task = asyncio.create_task(self._announce_pump())
         self._pex_task = asyncio.create_task(self._pex_pump())
         if self._peercache is not None:
@@ -414,6 +463,12 @@ class Scheduler:
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
+        if self._shardpool is not None:
+            await self._shardpool.stop()
+            self._shardpool = None
+        if self._leech_pool is not None:
+            await self._leech_pool.stop()
+            self._leech_pool = None
 
     @property
     def addr(self) -> str:
@@ -421,8 +476,15 @@ class Scheduler:
 
     @property
     def num_active_conns(self) -> int:
-        """Live peer conns -- the drain loop's quiesce signal."""
-        return len(self._conn_owners)
+        """Live peer conns -- the drain loop's quiesce signal. Counts
+        BOTH halves of the data plane: main-loop conns and the ones
+        handed to worker shards (a drain must wait for in-flight worker
+        serves exactly like in-flight dispatcher pieces). Leech-shard
+        conns are NOT added here: their proxies live in _conn_owners
+        already (the dispatcher adopted them), so adding the leech
+        pool's count would double-book every one."""
+        shard = self._shardpool.num_conns if self._shardpool else 0
+        return len(self._conn_owners) + shard
 
     def enter_lameduck(self) -> None:
         """Drain mode: seed announces stop (the tracker's peer TTL ages
@@ -434,6 +496,16 @@ class Scheduler:
         they complete and churn out; assembly's drain() waits on
         :attr:`num_active_conns`."""
         self.lameduck = True
+        if self._shardpool is not None:
+            # Fan the drain out: worker shards stop taking handoffs,
+            # let in-flight serves finish, and churn their conns out --
+            # the same SIGTERM semantics as the main loop.
+            self._shardpool.enter_lameduck()
+        if self._leech_pool is not None:
+            # Same for the download plane: no new handoffs; established
+            # leech conns keep pulling until their download completes
+            # (in-flight work finishing IS the point of the drain).
+            self._leech_pool.enter_lameduck()
         _log.info("scheduler entering lameduck drain")
 
     # -- public API --------------------------------------------------------
@@ -556,6 +628,15 @@ class Scheduler:
         if ctl is None:
             return
         self._digest_to_hash.pop(ctl.torrent.metainfo.digest, None)
+        if self._shardpool is not None:
+            # Worker shards drop their long-lived blob fd and close the
+            # torrent's conns gracefully (the remotes requeue elsewhere)
+            # -- a seeder must not keep serving bytes it just evicted.
+            self._shardpool.evict(ctl.torrent.metainfo.digest.hex)
+        if self._leech_pool is not None:
+            # Same fan-out on the download plane: leech workers hold a
+            # writable fd on the .part -- it must not outlive the blob.
+            self._leech_pool.evict(ctl.torrent.metainfo.digest.hex)
         self._announce_queue.remove(h)
         ctl.cancel_tasks()
         ctl.dispatcher.close()
@@ -1028,6 +1109,8 @@ class Scheduler:
             if not self.conn_state.promote(theirs.peer_id, h):
                 writer.close()
                 return
+            if self._try_leech_handoff(ctl, reader, writer, theirs):
+                return
             self._adopt(ctl, reader, writer, theirs)
 
     # -- inbound conns -----------------------------------------------------
@@ -1055,7 +1138,230 @@ class Scheduler:
         if ctl is None or not self.conn_state.promote(theirs.peer_id, h):
             writer.close()
             return
+        if self._try_handoff(ctl, reader, writer, theirs):
+            return
+        if self._try_leech_handoff(ctl, reader, writer, theirs):
+            return
         self._adopt(ctl, reader, writer, theirs)
+
+    def _try_handoff(
+        self,
+        ctl: _TorrentControl,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+        theirs: HandshakeResult,
+    ) -> bool:
+        """Classify + ship a seed-only inbound conn to a worker shard.
+
+        Seed-only means OUR torrent is complete: this conn will never
+        request a piece, never touch the verifier or bufpool -- it only
+        serves, which is exactly the half of the data plane the worker
+        processes own (p2p/shardpool.py). Leech conns (we still need
+        pieces) and bandwidth-shaped nodes (the egress token bucket is
+        in-process state a worker cannot share) stay on the main loop.
+        Returns False to fall through to the normal in-loop adopt; the
+        conn-state slot reserved by promote() travels with the conn and
+        is released by the worker's closed verdict.
+        """
+        pool = self._shardpool
+        if pool is None or not pool.can_accept:
+            return False
+        if not ctl.torrent.complete() or self.bandwidth is not None:
+            return False
+        if getattr(ctl.torrent, "spool_backed", False):
+            # Serve-while-ingest: the backing file is the upload spool; a
+            # failed commit unlinks it, which must also close the serving
+            # fd -- keep the conn on the main loop until promoted.
+            return False
+        if not os.path.exists(ctl.torrent.blob_path):
+            # Chunk-backed blob (store/chunkstore.py): there is no flat
+            # file for the worker's long-lived sendfile fd. Serve from
+            # the main loop, whose piece reads compose through the
+            # chunk tier -- correctness over the shard fast path.
+            return False
+        transport = writer.transport
+        sock = transport.get_extra_info("socket")
+        if sock is None:
+            return False  # exotic transport (tests' mocks): keep in-loop
+        h = ctl.torrent.info_hash
+        try:
+            transport.pause_reading()
+        except (RuntimeError, NotImplementedError):
+            return False
+        # Frames the remote pipelined behind its handshake already sit in
+        # the parent's StreamReader; they must travel with the fd or the
+        # worker would start mid-stream.
+        residual = bytes(getattr(reader, "_buffer", b""))
+        desc = {
+            "peer": theirs.peer_id.hex,
+            "ih": h.hex,
+            "name": ctl.torrent.metainfo.digest.hex,
+            "plen": ctl.torrent.metainfo.piece_length,
+            "len": ctl.torrent.metainfo.length,
+            "np": ctl.torrent.num_pieces,
+            "path": ctl.torrent.blob_path,
+            "residual": residual,
+            # The dialer's trace context rides the handoff: the worker's
+            # serve spans join the leecher's trace even though they run
+            # in a forked process (spans ship home over this channel).
+            "tp": theirs.traceparent,
+        }
+        try:
+            dup = sock.dup()
+        except OSError:
+            transport.resume_reading()
+            return False
+        try:
+            ok = pool.try_handoff(dup.fileno(), desc)
+        finally:
+            # send_fds installed a kernel-held reference in the control
+            # message; on failure this dup is simply dropped.
+            dup.close()
+        if not ok:
+            transport.resume_reading()
+            return False
+        # The worker owns the conn now: retire the parent-side transport
+        # WITHOUT closing the connection (the in-flight SCM_RIGHTS ref
+        # keeps it alive until the worker adopts the fd).
+        transport.abort()
+        self.events.emit(
+            "add_active_conn", h.hex, peer=theirs.peer_id.hex, shard=True
+        )
+        return True
+
+    def _try_leech_handoff(
+        self,
+        ctl: _TorrentControl,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+        theirs: HandshakeResult,
+    ) -> bool:
+        """Classify + ship an active-DOWNLOAD conn to a leech worker
+        shard (dialed or accepted while our torrent is still partial).
+
+        The worker owns the socket: recv pump, frame parse, in-process
+        serves of pieces we already have, and -- after the parent's
+        batched verify -- the pwrite. The parent keeps everything that
+        needs shared state: a :class:`LeechConnProxy` is adopted into
+        the dispatcher exactly like a Conn, so piece selection, endgame,
+        churn, blacklist verdicts, and PEX all run unchanged. Returns
+        False to fall through to the normal in-loop adopt.
+        """
+        pool = self._leech_pool
+        if pool is None or not pool.can_accept:
+            return False
+        torrent = ctl.torrent
+        if torrent.complete():
+            return False  # nothing left to pull: that's the seed plane
+        if self.bandwidth is not None:
+            # The ingress token bucket is in-process state a worker
+            # cannot share: shaped nodes keep downloads on the main loop.
+            return False
+        if getattr(torrent, "spool_backed", False):
+            return False
+        if min(
+            torrent.metainfo.piece_length, torrent.metainfo.length
+        ) > pool.slot_bytes:
+            # The largest ACTUAL piece must fit one ring slot (mmap'd
+            # pre-fork, fixed size): longer pieces stay on the main
+            # loop. min() because a blob shorter than the nominal piece
+            # length has a single piece of its own size.
+            return False
+        if not os.path.exists(torrent.blob_path):
+            # The preallocated .part is the worker's pwrite target; no
+            # flat file, no remote writes.
+            return False
+        transport = writer.transport
+        sock = transport.get_extra_info("socket")
+        if sock is None:
+            return False  # exotic transport (tests' mocks): keep in-loop
+        peername = writer.get_extra_info("peername")
+        h = torrent.info_hash
+        try:
+            transport.pause_reading()
+        except (RuntimeError, NotImplementedError):
+            return False
+        residual = bytes(getattr(reader, "_buffer", b""))
+        desc = {
+            "peer": theirs.peer_id.hex,
+            "ih": h.hex,
+            "name": torrent.metainfo.digest.hex,
+            "plen": torrent.metainfo.piece_length,
+            "len": torrent.metainfo.length,
+            "np": torrent.num_pieces,
+            "path": torrent.blob_path,
+            "residual": residual,
+            "tp": theirs.traceparent,
+            # Leech extensions: open the blob r+ (verdict pwrites land
+            # there) and seed the worker's have-set from our bitfield so
+            # it can answer the remote's requests in-process.
+            "leech": True,
+            "wr": True,
+            "have": torrent.bitfield(),
+        }
+        proxy = LeechConnProxy(
+            theirs.peer_id, h,
+            send_frames=lambda frames: pool.send_frames(proxy, frames),
+            close_remote=lambda reason, mis: pool.close_remote(
+                proxy, reason, mis
+            ),
+        )
+        try:
+            dup = sock.dup()
+        except OSError:
+            transport.resume_reading()
+            return False
+        try:
+            ok = pool.try_handoff(dup.fileno(), desc, proxy=proxy)
+        finally:
+            dup.close()
+        if not ok:
+            transport.resume_reading()
+            return False
+        # The worker owns the socket now: retire the parent transport
+        # without closing the connection (the SCM_RIGHTS ref keeps it
+        # alive until the worker adopts the fd).
+        transport.abort()
+        proxy.start()
+        if not ctl.dispatcher.add_conn(
+            proxy, theirs.bitfield, theirs.num_pieces
+        ):
+            # Duplicate peer / bad bitfield: the dispatcher closed the
+            # proxy, which echoed the close to the worker. The conn is
+            # fully handled -- do NOT fall through to _adopt (the socket
+            # is gone from this process).
+            self.conn_state.remove(theirs.peer_id, h)
+            return True
+        key = (theirs.peer_id, h)
+        self._conn_owners[key] = proxy
+        proxy.closed.add_done_callback(
+            lambda _f: self._conn_closed(key, proxy)
+        )
+        if theirs.listen_port and peername:
+            ctl.known_peers.add(
+                PeerInfo(theirs.peer_id, peername[0], theirs.listen_port),
+                "conn",
+            )
+        self.events.emit(
+            "add_active_conn", h.hex, peer=theirs.peer_id.hex, leech=True
+        )
+        return True
+
+    def _shard_conn_closed(self, desc: dict, reason: str,
+                           misbehavior: bool) -> None:
+        """A worker shard reported one of its conns closed: release the
+        conn-state slot the handoff carried, and feed misbehavior
+        verdicts into the same blacklist path main-loop conns use."""
+        peer = PeerID(desc["peer"])
+        h = InfoHash(desc["ih"])
+        if misbehavior:
+            self._peer_failed(peer, h, f"shard conn misbehavior: {reason}")
+        else:
+            self.conn_state.remove(peer, h)
+        self.events.emit(
+            "drop_active_conn", h.hex, peer=peer.hex, reason=reason,
+            detail="shard",
+        )
 
     def _bitfield_for(self, hs: HandshakeResult) -> tuple[bytes, int]:
         """Inbound handshake: find or create local state for the torrent.

@@ -54,6 +54,8 @@ class BatchedVerifier:
         self._queue: list[tuple[bytes, bytes, asyncio.Future]] = []
         self._flusher: Optional[asyncio.Task] = None
         self._inflight: set[asyncio.Task] = set()  # strong refs to hash tasks
+        # Waiter future -> the hash task whose thread reads its buffer.
+        self._reading: dict[asyncio.Future, asyncio.Task] = {}
         # The size histogram says whether arrivals coalesce; the per-path
         # batch counter splits host SHA from device launches.
         self._h_batch_size = REGISTRY.histogram(
@@ -75,7 +77,17 @@ class BatchedVerifier:
             self._flusher = asyncio.create_task(self._flush_soon())
         if len(self._queue) >= self._max_batch:
             self._flush_now()
-        return await fut
+        try:
+            return await fut
+        except asyncio.CancelledError:
+            # A cancelled caller frees ``data`` as soon as this returns (a
+            # leech worker reuses its ring slot the moment the drop
+            # arrives). While a flush's thread is still copying it into
+            # staging, return only after that copy.
+            reader = self._reading.get(fut)
+            if reader is not None and not reader.done():
+                await asyncio.wait({reader})
+            raise
 
     async def _flush_soon(self) -> None:
         await asyncio.sleep(self._max_delay)
@@ -109,6 +121,18 @@ class BatchedVerifier:
         batch = [(d, e, f) for d, e, f in batch if not f.done()]
         if not batch:
             return
+        me = asyncio.current_task()
+        for _d, _e, fut in batch:
+            self._reading[fut] = me
+        try:
+            await self._hash_batch(batch)
+        finally:
+            for _d, _e, fut in batch:
+                self._reading.pop(fut, None)
+
+    async def _hash_batch(
+        self, batch: list[tuple[bytes, bytes, asyncio.Future]]
+    ) -> None:
         try:
             digests = await asyncio.to_thread(
                 self.hasher.hash_batch, [d for d, _e, _f in batch]
@@ -362,10 +386,24 @@ class Torrent:
             raise PieceError(f"short read on piece {i}")
         return data
 
-    async def write_piece(self, i: int, data: bytes | memoryview) -> bool:
+    async def write_piece(
+        self,
+        i: int,
+        data: bytes | memoryview,
+        remote_write=None,
+    ) -> bool:
         """Verify + persist piece ``i``. Returns True when this write
         completed the torrent. Raises :class:`PieceError` on corrupt data
-        (callers blacklist the sender). File IO runs off-loop."""
+        (callers blacklist the sender). File IO runs off-loop.
+
+        ``remote_write`` (leech-shard plane): an async callable taking
+        the piece index that persists the already-verified bytes in the
+        WORKER that received them -- the payload stays in its shared
+        slot and never crosses back to this process. It replaces only
+        the data write: verify, the duplicate checks, the bit mark and
+        the commit stay here, so a set bit still implies bytes on disk.
+        A remote write that fails (the worker died) raises, the piece
+        stays unmarked, and the dispatcher requeues it."""
         if self._status is None:
             # A second copy of the final piece can arrive after completion:
             # a benign duplicate, never a peer fault.
@@ -385,7 +423,10 @@ class Torrent:
         # offsets, so concurrent pwrites never conflict. Completion cannot
         # race this write: piece i's bit is only set below.
         t0 = time.perf_counter()
-        await asyncio.to_thread(self._write_at, i, data)
+        if remote_write is not None:
+            await remote_write(i)
+        else:
+            await asyncio.to_thread(self._write_at, i, data)
         self.write_wall += time.perf_counter() - t0
         async with self._lock:
             # Re-check under the lock: a concurrent writer of the same

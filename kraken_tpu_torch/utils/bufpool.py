@@ -1,7 +1,7 @@
-"""Size-classed buffer pool: the ingest plane's staging windows.
+"""Size-classed buffer pool: the ingest plane's staging windows and the
+wire's payload buffers, and the leech workers' shared slab.
 
-The port's copy of ``kraken_tpu.utils.bufpool`` (``SlabRing``, the
-leech-shard slab, waits for that plane). A lease for ``n`` bytes draws a
+The port's copy of ``kraken_tpu.utils.bufpool``. A lease for ``n`` bytes draws a
 reused ``bytearray`` from the power-of-two class that fits (floor 4 KiB);
 one explicit :meth:`Lease.release` returns it. Retained (free) bytes are
 capped by ``budget_bytes``; a release that would exceed the budget drops
@@ -12,10 +12,14 @@ whether the pool is recycling.
 
 Thread-safe: the ingest plane leases on the caller's thread and releases
 on its window workers.
+
+:class:`SlabRing` is the leech-shard plane's slab (``p2p/shardpool.py``):
+one anonymous shared mapping made before a worker forks.
 """
 
 from __future__ import annotations
 
+import mmap
 import threading
 
 MIN_CLASS = 1 << 12  # 4 KiB: below this, pooling costs more than malloc
@@ -158,3 +162,69 @@ class BufferPool:
         self._g_leased.set(leased, pool=self.name)
         self._g_hit.set(ratio, pool=self.name)
         self._g_retained.set(retained, pool=self.name)
+
+
+class SlabRing:
+    """Fixed-slot shared-memory slab for the leech-shard plane.
+
+    One anonymous ``MAP_SHARED`` mapping, created by the scheduler BEFORE
+    a leech worker forks, so both processes address the same pages: the
+    worker's recv pump lands PIECE_PAYLOAD bytes straight into a leased
+    slot, and the parent verifies through a zero-copy :meth:`view` of the
+    very same memory -- only the slot index crosses the control channel.
+
+    Slots are one bufpool class (:func:`_class_for` of the largest piece
+    the plane takes); the scheduler keeps a torrent whose pieces are
+    longer on the main loop. The WORKER leases and releases (its
+    post-fork copy of the free list is authoritative); the parent only
+    reads views. The lock guards the free list against the worker's
+    control-channel reader releasing while its pumps lease.
+
+    The mapping is plain pageable memory, never registered with the CUDA
+    driver: a registered range may be kept out of a later fork's child
+    (a respawned worker), and the parent's verify copies each slot view
+    into the hasher's own pinned staging as it copies any piece.
+    """
+
+    __slots__ = ("_mm", "slots", "slot_bytes", "_free", "_lock", "leased")
+
+    def __init__(self, slots: int, slot_bytes: int):
+        self.slots = max(1, slots)
+        self.slot_bytes = _class_for(slot_bytes)
+        self._mm = mmap.mmap(-1, self.slots * self.slot_bytes)
+        self._free: list[int] = list(range(self.slots))
+        self._lock = threading.Lock()
+        self.leased = 0
+
+    def lease(self) -> int | None:
+        """Claim a free slot index, or None when the ring is full (the
+        caller backpressures its conn -- TCP does the rest)."""
+        with self._lock:
+            if not self._free:
+                return None
+            self.leased += 1
+            return self._free.pop()
+
+    def release(self, slot: int) -> None:
+        with self._lock:
+            if 0 <= slot < self.slots and slot not in self._free:
+                self._free.append(slot)
+                self.leased = max(0, self.leased - 1)
+
+    def view(self, slot: int, n: int) -> memoryview:
+        """Writable view of ``slot``'s first ``n`` bytes. Valid in both
+        processes; the mapping outlives a dead worker, so in-flight
+        parent-side views stay readable after a crash."""
+        if not 0 <= slot < self.slots or n > self.slot_bytes:
+            raise ValueError(f"slot {slot} ({n}B) outside ring")
+        off = slot * self.slot_bytes
+        return memoryview(self._mm)[off : off + n]
+
+    def close(self) -> None:
+        """Best-effort unmap: exported views (a verify batch still
+        holding one) keep the mapping alive until they die -- dropping
+        the object is always safe."""
+        try:
+            self._mm.close()
+        except (BufferError, ValueError):
+            pass

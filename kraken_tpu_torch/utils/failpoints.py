@@ -73,6 +73,9 @@ KNOWN_FAILPOINTS = frozenset({
     "p2p.delta.base.evict",
     "p2p.pex.drop",
     "p2p.pex.flood",
+    "p2p.shard.leech.corrupt",
+    "p2p.shard.leech.disconnect",
+    "p2p.shard.serve.disconnect",
     "rpc.brownout.slow",
     "rpc.hedge.lose",
     "rpc.link.delay",

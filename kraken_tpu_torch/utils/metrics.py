@@ -17,9 +17,8 @@ node, with the CUDA kernels it saw counted by name.
 
 ``GET /metrics`` adds ``kernel_launches_total{kernel}``, the hand-written
 kernels' launches as their wrappers count them, on both formats; the
-reference has no counterpart. The data-plane shard gauges
-(``record_data_plane_shard``) come with the multi-core data plane
-(ROADMAP A7g).
+reference has no counterpart. :func:`record_data_plane_shard` puts the
+forked data-plane workers' counters on their node's mux.
 """
 
 from __future__ import annotations
@@ -264,6 +263,50 @@ def record_hash_pool_metrics(
         "hash_pool_queue_depth",
         "Hash tasks waiting for a free pool worker",
     ).set(queued, pool=pool)
+
+
+def record_data_plane_shard(
+    shard: str, *, conns: int, bytes_delta: float, serves_delta: float,
+    cpu_seconds: float, bytes_down_delta: float = 0.0,
+    pieces_delta: float = 0.0, registry: Registry = REGISTRY,
+) -> None:
+    """Aggregate one data-plane worker's counters onto the main metrics
+    mux (p2p/shardpool.py publishes them over the control channel;
+    workers have no HTTP listener of their own). Labeled ``shard=
+    "data_plane_shard{n}"`` (seed-serve plane) or ``"leech_shard{n}"``
+    (download plane) so a hot shard, an idle shard, and a crash-looping
+    shard are distinguishable on one dashboard; deltas keep counter
+    semantics across worker restarts. ``bytes_down_delta`` /
+    ``pieces_delta`` are the leech plane's receive-side counters and
+    stay zero for seed shards."""
+    registry.gauge(
+        "data_plane_worker_conns",
+        "Live seed conns served by each worker shard",
+    ).set(conns, shard=shard)
+    registry.gauge(
+        "data_plane_worker_cpu_seconds",
+        "Cumulative CPU (user+sys) of each worker shard",
+    ).set(cpu_seconds, shard=shard)
+    if bytes_delta:
+        registry.counter(
+            "data_plane_worker_bytes_sent_total",
+            "Piece payload bytes served by worker shards (sendfile path)",
+        ).inc(bytes_delta, shard=shard)
+    if serves_delta:
+        registry.counter(
+            "data_plane_worker_serves_total",
+            "Piece serves completed by worker shards",
+        ).inc(serves_delta, shard=shard)
+    if bytes_down_delta:
+        registry.counter(
+            "data_plane_worker_bytes_received_total",
+            "Piece payload bytes received by leech worker shards",
+        ).inc(bytes_down_delta, shard=shard)
+    if pieces_delta:
+        registry.counter(
+            "data_plane_worker_pieces_total",
+            "Piece payloads landed in the shared ring by leech shards",
+        ).inc(pieces_delta, shard=shard)
 
 
 class FailureMeter:

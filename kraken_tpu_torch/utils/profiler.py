@@ -26,9 +26,12 @@ The port's part of ``kraken_tpu.utils.profiler``, what the nodes start:
 - :func:`load_profile_dumps` folds any set of profile dumps for the
   ``flame`` subcommand, with every unparseable or truncated file named.
 
-The half that forked workers use (``restart_in_child``,
-``record_foreign``, ``drain_pending``) waits for the multi-core data plane
-(ROADMAP A7g).
+Forked data-plane workers (``p2p/shardpool.py``) call
+:meth:`~SamplingProfiler.restart_in_child`, ship their folded-stack
+deltas home with :meth:`~SamplingProfiler.drain_pending`, and the parent
+adopts them under the worker's node stamp with
+:meth:`~SamplingProfiler.record_foreign`, so one collapse covers the
+node and its workers.
 
 Overhead discipline: the shipped rate is LOW, and a sample is one
 ``sys._current_frames()`` walk plus a few dict increments off the event
@@ -207,21 +210,41 @@ class _Window:
         self.samples = 0
 
 
+# Bound on DISTINCT foreign stacks retained per shipping node: a worker
+# gone wild must cost flamegraph resolution, not parent RSS.
+_FOREIGN_STACKS_MAX = 4096
+# Bound on the worker-side not-yet-shipped delta (the stats tick drains
+# it every 250 ms, so hitting this means the parent is gone anyway).
+_PENDING_STACKS_MAX = 4096
+
+
 class SamplingProfiler:
     """One per process (like the metric REGISTRY and the TRACER); nodes
-    apply their YAML ``profiling:`` section at start and on SIGHUP."""
+    apply their YAML ``profiling:`` section at start and on SIGHUP.
+    Forked worker shards call :meth:`restart_in_child` -- the sampler
+    thread does not survive a fork, and the child must never touch the
+    possibly-mid-operation locks it inherited."""
 
     def __init__(self, config: ProfilerConfig | None = None):
         self.config = config or ProfilerConfig()
-        self.node = ""  # stamped on dumps
+        self.node = ""  # stamped on dumps + shipped samples
         self._lock = threading.Lock()
         self._windows: collections.deque[_Window] = collections.deque()
-        # Monotonic per-plane sample counts, NEVER trimmed by window
-        # rotation: delta consumers (the per-pull plane_split in
-        # dispatch.py) baseline against this -- a baseline against the
-        # rotating ring goes negative the moment an old window drops out
-        # mid-pull. O(planes) memory.
+        # node -> Counter of folded stacks shipped home by worker shards
+        # (record_foreign); rendered + dumped beside local samples.
+        self._foreign: dict[str, collections.Counter[str]] = {}
+        self._foreign_planes: dict[str, collections.Counter[str]] = {}
+        # Monotonic per-plane sample counts (local + foreign), NEVER
+        # trimmed by window rotation: delta consumers (the per-pull
+        # plane_split in dispatch.py) baseline against this -- a
+        # baseline against the rotating ring goes negative the moment
+        # an old window drops out mid-pull. O(planes) memory.
         self._plane_cum: collections.Counter[str] = collections.Counter()
+        # Child-side delta awaiting shipment over the control channel.
+        self._pending: collections.Counter[str] = collections.Counter()
+        self._pending_planes: collections.Counter[str] = collections.Counter()
+        self._ship_mode = False  # True only inside worker shards
+        self._in_child = False  # child: never touch the inherited REGISTRY
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         # Latest folded stack per thread id -- the loop-lag monitor's
@@ -273,12 +296,39 @@ class SamplingProfiler:
             self.stop()
             self.start()
 
+    def restart_in_child(self, node: str) -> None:
+        """Forked worker entry: fresh locks (the inherited ones may be
+        held by a parent thread that no longer exists here), cleared
+        sample state (the parent's ring lives in the parent), shipping
+        on, REGISTRY off (workers have no /metrics; the inherited
+        metric locks are fork-unsafe), then start if enabled."""
+        self._lock = threading.Lock()
+        self._dump_lock = threading.Lock()
+        self._windows = collections.deque()
+        self._foreign = {}
+        self._foreign_planes = {}
+        self._plane_cum = collections.Counter()
+        self._pending = collections.Counter()
+        self._pending_planes = collections.Counter()
+        self._last_stacks = {}
+        self._thread = None  # the parent's thread object is a corpse here
+        self._ship_mode = True
+        self._in_child = True
+        self._c_samples = None
+        self.node = node
+        self._main_tid = threading.main_thread().ident
+        self.start()
+
     def reset(self) -> None:
-        """Drop every sample. Benches use this to scope attribution to
-        one measured run."""
+        """Drop every sample (local and foreign). Benches use this to
+        scope attribution to one measured run."""
         with self._lock:
             self._windows.clear()
+            self._foreign.clear()
+            self._foreign_planes.clear()
             self._plane_cum.clear()
+            self._pending.clear()
+            self._pending_planes.clear()
 
     # -- the sampling thread -----------------------------------------------
 
@@ -322,7 +372,10 @@ class SamplingProfiler:
                 win.planes[plane] += 1
                 win.samples += 1
                 self._plane_cum[plane] += 1
-        if folded:
+                if self._ship_mode and len(self._pending) < _PENDING_STACKS_MAX:
+                    self._pending[stack] += 1
+                    self._pending_planes[plane] += 1
+        if not self._in_child and folded:
             if self._c_samples is None:
                 from kraken_tpu_torch.utils.metrics import REGISTRY
 
@@ -344,16 +397,23 @@ class SamplingProfiler:
 
     # -- reading -----------------------------------------------------------
 
-    def folded(self) -> list[tuple[str, int]]:
-        """Aggregated (stack, count) over the whole ring -- the
-        flamegraph collapse, sorted hot-first."""
+    def folded(
+        self, include_foreign: bool = True
+    ) -> list[tuple[str, int]]:
+        """Aggregated (stack, count) over the whole ring, foreign worker
+        samples prefixed with their node stamp -- the flamegraph
+        collapse, sorted hot-first."""
         agg: collections.Counter[str] = collections.Counter()
         with self._lock:
             for win in self._windows:
                 agg.update(win.counts)
+            if include_foreign:
+                for node, counts in self._foreign.items():
+                    for stack, c in counts.items():
+                        agg[f"{node};{stack}"] += c
         return agg.most_common()
 
-    def plane_totals(self) -> dict[str, int]:
+    def plane_totals(self, include_foreign: bool = True) -> dict[str, int]:
         """Plane counts over the RING (what the live surfaces show).
         Shrinks as windows rotate out -- delta consumers must baseline
         against :meth:`plane_cumulative` instead."""
@@ -361,12 +421,15 @@ class SamplingProfiler:
         with self._lock:
             for win in self._windows:
                 agg.update(win.planes)
+            if include_foreign:
+                for counts in self._foreign_planes.values():
+                    agg.update(counts)
         return dict(agg)
 
     def plane_cumulative(self) -> dict[str, int]:
-        """Monotonic per-plane sample counts since start/reset, immune to
-        window rotation -- the correct baseline for "what happened
-        between T0 and T1" deltas."""
+        """Monotonic per-plane sample counts since start/reset (local +
+        foreign), immune to window rotation -- the correct baseline for
+        "what happened between T0 and T1" deltas."""
         with self._lock:
             return dict(self._plane_cum)
 
@@ -387,16 +450,72 @@ class SamplingProfiler:
                 }
                 for w in self._windows
             ]
+            foreign = {
+                node: sum(c.values()) for node, c in self._foreign.items()
+            }
         planes = self.plane_totals()
         return {
             "node": self.node,
             "running": self.running,
             "hz": self.config.hz,
             "windows": windows,
+            "foreign_samples": foreign,
             "planes": planes,
             "plane_pct_busy": plane_pct_busy(planes),
             "stacks": self.folded()[:200],
         }
+
+    # -- cross-process shipping (worker shards) ----------------------------
+
+    def drain_pending(self, max_stacks: int = 256) -> dict | None:
+        """Worker side: pop up to ``max_stacks`` distinct folded stacks
+        (+ their plane counts) for one control-channel message. None
+        when there is nothing to ship."""
+        with self._lock:
+            if not self._pending:
+                return None
+            items = self._pending.most_common(max_stacks)
+            for stack, _c in items:
+                del self._pending[stack]
+            planes = dict(self._pending_planes)
+            self._pending_planes.clear()
+        return {
+            "node": self.node,
+            "stacks": [[s, c] for s, c in items],
+            "planes": planes,
+        }
+
+    def record_foreign(
+        self, node: str, stacks: Iterable, planes: dict | None = None
+    ) -> None:
+        """Parent side: adopt a worker shard's folded-stack delta under
+        its node stamp. Bounded per node -- an over-cap stack folds into
+        a synthetic ``(truncated)`` bucket so totals stay honest."""
+        if not node:
+            return
+        with self._lock:
+            counts = self._foreign.setdefault(node, collections.Counter())
+            for entry in stacks:
+                try:
+                    stack, c = entry[0], int(entry[1])
+                except (TypeError, ValueError, IndexError):
+                    continue
+                if (
+                    len(counts) >= _FOREIGN_STACKS_MAX
+                    and stack not in counts
+                ):
+                    stack = "(truncated)"
+                counts[stack] += c
+            if planes:
+                pc = self._foreign_planes.setdefault(
+                    node, collections.Counter()
+                )
+                for plane, c in planes.items():
+                    try:
+                        pc[str(plane)] += int(c)
+                        self._plane_cum[str(plane)] += int(c)
+                    except (TypeError, ValueError):
+                        continue
 
     # -- profile dumps (the postmortem artifact) ---------------------------
 
@@ -426,7 +545,7 @@ class SamplingProfiler:
             return None
 
     def dump(self, trigger: str = "manual", detail: str = "") -> str | None:
-        """Write the current collapse to
+        """Write the current collapse (local + foreign) to
         ``<dump_dir>/profile-<trigger>-*.jsonl``; the header's ``stacks``
         count lets a reader detect a truncated file. Returns the path, or
         None (no dir / empty ring). Synchronous off-loop; handed to a
@@ -436,7 +555,21 @@ class SamplingProfiler:
         if not cfg.dump_dir:
             return None
         node = self.node
-        rows = [(node, s, c) for s, c in self.folded()]
+        # Rows carry their OWN node stamp (worker-shipped stacks keep
+        # theirs), so the flame loader joins multi-process samples
+        # without double-prefixing.
+        local: collections.Counter[str] = collections.Counter()
+        with self._lock:
+            for win in self._windows:
+                local.update(win.counts)
+            foreign = {
+                n: c.most_common() for n, c in self._foreign.items()
+            }
+        rows: list[tuple[str, str, int]] = [
+            (node, s, c) for s, c in local.most_common()
+        ]
+        for n, counts in foreign.items():
+            rows.extend((n, s, c) for s, c in counts)
         if not rows:
             return None
         planes = self.plane_totals()
@@ -471,12 +604,13 @@ class SamplingProfiler:
                             separators=(",", ":"),
                         ) + "\n")
                 os.replace(tmp, path)
-                from kraken_tpu_torch.utils.metrics import REGISTRY
+                if not self._in_child:
+                    from kraken_tpu_torch.utils.metrics import REGISTRY
 
-                REGISTRY.counter(
-                    "profile_dumps_total",
-                    "Profile JSONL postmortems written, by trigger",
-                ).inc(trigger=trigger)
+                    REGISTRY.counter(
+                        "profile_dumps_total",
+                        "Profile JSONL postmortems written, by trigger",
+                    ).inc(trigger=trigger)
             except Exception:
                 # Best-effort postmortem -- but a profile capture that
                 # never lands should show up in the logs, not vanish.

@@ -484,11 +484,27 @@ def test_an_origin_on_the_card_gets_an_ingest_pipeline_by_default(monkeypatch, t
     assert cpu.ingest_pipeline is None
 
 
-def test_the_data_plane_workers_flag_is_refused_naming_a7g(tmp_path):
-    with pytest.raises(SystemExit) as ei:
-        cli.main(["agent", "--hasher", "cpu", "--store", str(tmp_path / "a"),
-                  "--leech-workers", "2"])
-    assert ei.value.code == 2
+def test_the_data_plane_workers_flags_reach_the_scheduler_config(tmp_path, monkeypatch):
+    """``--data-plane-workers`` and ``--leech-workers`` override the
+    scheduler section of the agent; the origin takes the first and, as in
+    the reference, drops the leech knobs."""
+    built = {}
+
+    async def capture(node, describe, config_path=None):
+        built[describe["component"]] = node
+
+    monkeypatch.setattr(cli, "_run_until_signal", capture)
+    cli.main(["agent", "--hasher", "cpu", "--store", str(tmp_path / "a"),
+              "--leech-workers", "2", "--data-plane-workers", "3"])
+    cli.main(["origin", "--hasher", "cpu", "--store", str(tmp_path / "o"),
+              "--data-plane-workers", "1"])
+    agent = built["agent"].scheduler_config
+    assert (agent.leech_workers, agent.data_plane_workers) == (2, 3)
+    origin = assembly.OriginNode.build_scheduler_config(built["origin"]._scheduler_doc)
+    assert origin.data_plane_workers == 1
+    shared = assembly.OriginNode.build_scheduler_config(
+        {"data_plane_workers": 1, "leech_workers": 4, "leech_ring_mb": 8})
+    assert (shared.data_plane_workers, shared.leech_workers, shared.leech_ring_mb) == (1, 0, 32)
 
 
 @pytest.mark.parametrize("name,item", sorted(cli.NOT_PORTED.items()))

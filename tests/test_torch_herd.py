@@ -177,7 +177,18 @@ def _wait_for(path: Path, needle: str, timeout: float = 20.0) -> str:
     raise AssertionError(f"{needle!r} never appeared:\n" + path.read_text()[-2000:])
 
 
+def _wait_for_count(path: Path, needle: str, count: int, timeout: float = 20.0) -> None:
+    deadline = time.time() + timeout
+    while path.read_text().count(needle) < count:
+        if time.time() > deadline:
+            raise AssertionError(f"{needle!r} not {count} times:\n" + path.read_text()[-2000:])
+        time.sleep(0.1)
+
+
 def test_sighup_reloads_the_agents_scheduler_and_a_bad_reload_keeps_the_config(tmp_path):
+    """A SIGHUP applies the scheduler section live, worker counts
+    included (the agent forks its two seed-serve workers); a section the
+    reader refuses keeps the current config whole."""
     cfg = tmp_path / "agent.yaml"
     base = f"extends: {CONFIG}/agent/development.yaml\nscheduler:\n  wire_send_batch: "
     cfg.write_text(base + "16\n")
@@ -192,8 +203,13 @@ def test_sighup_reloads_the_agents_scheduler_and_a_bad_reload_keeps_the_config(t
         assert "scheduler config reloaded" in log
         cfg.write_text(base + "4\n  data_plane_workers: 2\n")
         procs[0].send_signal(signal.SIGHUP)
+        log = _wait_for(err, '"wire_send_batch": 4')
+        assert '"data_plane_workers": 2' in log
+        _wait_for_count(err, "data-plane shard spawned", 2)
+        cfg.write_text(base + "2\n  data_plane_workers: 2\n  no_such_knob: 1\n")
+        procs[0].send_signal(signal.SIGHUP)
         log = _wait_for(err, "keeping current config")
-        assert "A7g" in log and '"wire_send_batch": 4' not in log
+        assert "no_such_knob" in log and '"wire_send_batch": 2' not in log
         assert stop_all(procs) == [0]
 
 

@@ -65,13 +65,111 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
                    "dockerregistry/errors.py", "dockerregistry/transfer.py",
                    "dockerregistry/registry.py", "buildindex/__init__.py",
                    "buildindex/tagtype.py", "buildindex/tagstore.py",
-                   "buildindex/server.py", "utils/sanitize.py", "utils/promgen.py"):
+                   "buildindex/server.py", "utils/sanitize.py", "utils/promgen.py",
+                   "p2p/shardpool.py"):
         assert f"kraken_tpu_torch/{module}" in scanned, module
     bad = {
         str(f.relative_to(REPO)): m
         for f in files for m in _imports(f) if _is_forbidden(m)
     }
     assert bad == {}
+
+
+def _module_file(name: str) -> Path | None:
+    """The port's source file of module ``name`` (a package's
+    ``__init__.py``), or None outside the port."""
+    if name.split(".")[0] != "kraken_tpu_torch":
+        return None
+    base = REPO.joinpath(*name.split("."))
+    for path in (base.with_suffix(".py"), base / "__init__.py"):
+        if path.is_file():
+            return path
+    return None
+
+
+def _named_imports(nodes) -> list[str]:
+    """Modules the import statements among ``nodes`` name, at any depth
+    of those nodes; ``from pkg import x`` names ``pkg.x`` when it is a
+    module of the port."""
+    found = []
+    for top in nodes:
+        for node in ast.walk(top):
+            if isinstance(node, ast.Import):
+                found += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                found.append(node.module)
+                found += [f"{node.module}.{a.name}" for a in node.names
+                          if _module_file(f"{node.module}.{a.name}") is not None]
+    return found
+
+
+def _load_time_imports(path: Path) -> list[str]:
+    """What importing ``path`` imports: its statements outside any def
+    (a function's own imports run only when it is called)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out, stack = [], list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            out += _named_imports([node])
+        else:
+            stack.extend(ast.iter_child_nodes(node))
+    return out
+
+
+def _import_closure(roots: list[str]) -> set[str]:
+    """Every module reached from ``roots`` through the port's modules'
+    load-time imports, with the parent packages of each port module. The
+    top package's ``__init__`` is not followed: it re-exports the hasher
+    (and so imports torch), and a forked worker inherits it already
+    imported from its node, so nothing in it runs in the worker."""
+    seen: set[str] = set()
+    todo = list(roots)
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        path = _module_file(name)
+        if path is None or name == "kraken_tpu_torch":
+            continue
+        parts = name.split(".")
+        todo += [".".join(parts[:i]) for i in range(2, len(parts))]
+        todo += _load_time_imports(path)
+    return seen
+
+
+def _worker_half_imports() -> list[str]:
+    """The imports of ``p2p/shardpool.py``'s worker half: its load-time
+    imports and every import inside a def or class above the "Parent
+    side" marker."""
+    path = REPO / "kraken_tpu_torch/p2p/shardpool.py"
+    src = path.read_text()
+    marker = src[: src.index("# Parent side")].count("\n") + 1
+    tree = ast.parse(src, filename=str(path))
+    worker = [n for n in tree.body if n.lineno < marker
+              and isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))]
+    return _load_time_imports(path) + _named_imports(worker)
+
+
+def test_the_shardpool_worker_half_reaches_neither_torch_nor_the_kernels():
+    """A worker is forked from a node whose CUDA context is live; torch
+    marks such a child a bad fork and any ``torch.cuda`` call there
+    raises. So nothing the worker half imports, at any depth of the
+    port's module imports, is ``torch`` or ``kraken_tpu_torch.ops``."""
+    reached = _import_closure(_worker_half_imports())
+    for module in ("kraken_tpu_torch.p2p.wire", "kraken_tpu_torch.utils.msgpack_lite",
+                   "kraken_tpu_torch.utils.bufpool", "kraken_tpu_torch.utils.failpoints",
+                   "kraken_tpu_torch.utils.trace", "kraken_tpu_torch.utils.profiler",
+                   "kraken_tpu_torch.utils.metrics"):
+        assert module in reached, module
+    bad = sorted(m for m in reached if m.split(".")[0] == "torch"
+                 or m == "kraken_tpu_torch.ops" or m.startswith("kraken_tpu_torch.ops."))
+    assert bad == []
+    # The walk sees torch where it is: the hasher's module imports it.
+    assert "torch" in _import_closure(["kraken_tpu_torch.ops.sha256"])
 
 
 _SLICE = r"""

@@ -3,8 +3,8 @@ real piece exchange, an in-memory tracker. The cases of
 ``tests/test_swarm.py`` against the port, pulls across the two packages
 (a port leecher from a ``kraken_tpu`` seeder and the reverse, with the
 trace context carried across), one pull verified through the SHA-256
-kernel's wrapper (its plain version, on the CPU), the refusal of the
-multi-core data plane's knobs, the sampling profiler the dispatcher
+kernel's wrapper (its plain version, on the CPU), the multi-core data
+plane's knobs starting and resizing its worker pools, the sampling profiler the dispatcher
 reads, and the ``Torrent`` methods the dispatcher and scheduler call,
 against ``kraken_tpu``'s."""
 
@@ -360,27 +360,55 @@ def test_pull_verified_through_the_kernel_wrapper_on_the_cpu(tmp_path):
     assert sha256_cuda.LAUNCHES == before[2]
 
 
+POOL_OF = {"data_plane_workers": "_shardpool", "leech_workers": "_leech_pool"}
+
+
 @pytest.mark.parametrize("knob", ["data_plane_workers", "leech_workers"])
 @pytest.mark.parametrize("how", ["init", "from_dict", "reload"])
-def test_the_multi_core_data_plane_is_refused(tmp_path, knob, how):
-    with pytest.raises(ValueError, match="A7g"):
+def test_the_multi_core_data_plane_is_taken(tmp_path, knob, how):
+    """A worker count above 0 starts that many forked workers at start,
+    from the constructor or the YAML section, and a reload of a running
+    scheduler starts (and then resizes) the pool live."""
+    import multiprocessing
+
+    async def main():
+        sched, _ = make_peer(tmp_path, "p", FakeTracker())
         if how == "init":
-            SchedulerConfig(**{knob: 1})
+            sched.config = SchedulerConfig(**{knob: 1})
         elif how == "from_dict":
-            SchedulerConfig.from_dict({knob: 2})
-        else:
-            sched, _ = make_peer(tmp_path, "p", FakeTracker())
-            cfg = SchedulerConfig()
-            setattr(cfg, knob, 1)
-            sched.reload(cfg)
+            sched.config = SchedulerConfig.from_dict({knob: 2})
+        await sched.start()
+        try:
+            if how == "reload":
+                assert getattr(sched, POOL_OF[knob]) is None
+                cfg = SchedulerConfig()
+                setattr(cfg, knob, 1)
+                sched.reload(cfg)
+                pool = getattr(sched, POOL_OF[knob])
+                assert pool is not None and pool.alive_workers == 1
+                setattr(cfg, knob, 2)
+                sched.reload(cfg)
+            pool = getattr(sched, POOL_OF[knob])
+            want = 1 if how == "init" else 2
+            assert pool is not None and pool.expected_workers == want
+            deadline = asyncio.get_running_loop().time() + 10
+            while pool.alive_workers != want:
+                assert asyncio.get_running_loop().time() < deadline
+                await asyncio.sleep(0.05)
+            assert pool.leech == (knob == "leech_workers")
+        finally:
+            await sched.stop()
+        assert getattr(sched, POOL_OF[knob]) is None
+
+    asyncio.run(main())
+    assert multiprocessing.active_children() == []
     assert SchedulerConfig().data_plane_workers == SchedulerConfig().leech_workers == 0
 
 
-def test_the_shipped_scheduler_sections_load_and_workers_stay_refused():
+def test_the_shipped_scheduler_sections_load_and_take_workers():
     """The shipped agent files set ``leech_ring_mb: 32`` beside
-    ``leech_workers: 0``: the port takes the key, stores it as the
-    reference does, and nothing reads it while the workers stay at 0.
-    Any worker count above 0 is still refused, naming A7g."""
+    ``leech_workers: 0``: the port takes every key as the reference does,
+    worker counts above 0 included, with the reference's defaults."""
     import yaml
 
     from kraken_tpu.configutil import load_config as jax_load_config
@@ -397,8 +425,9 @@ def test_the_shipped_scheduler_sections_load_and_workers_stay_refused():
     assert SchedulerConfig.from_dict({"leech_ring_mb": 8}).leech_ring_mb == 8
     assert SchedulerConfig().leech_ring_mb == JaxSchedulerConfig().leech_ring_mb == 32
     for knob in ("leech_workers", "data_plane_workers"):
-        with pytest.raises(ValueError, match="A7g"):
-            SchedulerConfig.from_dict({"leech_ring_mb": 32, knob: 1})
+        doc = {"leech_ring_mb": 32, knob: 2}
+        assert getattr(SchedulerConfig.from_dict(doc), knob) == 2
+        assert getattr(JaxSchedulerConfig.from_dict(doc), knob) == 2
 
 
 def test_a_pull_reports_its_plane_split_while_the_profiler_runs(tmp_path, monkeypatch):

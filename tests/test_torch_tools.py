@@ -360,12 +360,11 @@ def test_promgen_writes_the_references_files_byte_for_byte(tmp_path, name):
 
 def test_promgen_names_only_metrics_the_port_registers():
     """Every metric the alert rules read is one the port's nodes export
-    under the same name (a rule over a missing series never fires), but
-    for the worker-shard crash counter, which comes with the multi-core
-    data plane (ROADMAP A7g)."""
+    under the same name (a rule over a missing series never fires), the
+    worker-shard crash counter of the multi-core data plane included."""
     names = port_promgen.referenced_metric_names(port_promgen.generate_alert_rules())
     assert names == jax_promgen.referenced_metric_names(jax_promgen.generate_alert_rules())
     sources = "\n".join(p.read_text() for p in (REPO / "kraken_tpu_torch").rglob("*.py"))
     missing = sorted(n for n in names if f'"{n}"' not in sources
                      and f'"{n.removesuffix("_bucket")}"' not in sources)
-    assert missing == ["data_plane_worker_crashes_total"]
+    assert missing == []
