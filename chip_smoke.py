@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs seventeen phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs nineteen phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -288,13 +288,53 @@ without a result:
    every canary blob from the origin and its state file; then the
    origin, and ``status`` over tracker and origin exits 2 naming the
    origin alone; then the tracker.
+18. ``shards`` -- pulls through forked workers beside a live CUDA context:
+   tracker, an origin with ``data_plane_workers: 2``, agent A with two
+   seed-serve and two leech workers, agent B at 0 holding one conn a
+   torrent, four CLI processes. (a) 1 GiB pulled by A through its leech
+   workers; (b) A and B pull a fresh 1 GiB, B from A, A's leech worker
+   SIGKILLed at a quarter of the pieces and respawned; (d) the origin
+   SIGHUPed from two workers to one at half; (c) B pulls (a)'s blob from
+   A's seed workers; (e) SIGTERM, every child 0, no worker left.
+19. ``backends`` -- an origin in front of blob storage, as kraken is
+   deployed: tracker, origin, build-index and agent (with its registry
+   endpoint) as four CLI processes started together, ``--hasher cuda``;
+   the origin's ``backends:`` maps ``^s3/.*`` to ``s3`` at a fake S3 and
+   ``^library/.*`` to ``registry_blob`` at a fake upstream registry, the
+   build-index's ``.*`` to ``registry_tag`` there (``RemoteFakes``: both
+   in this process on ``http_lite``; S3 re-derives every SigV4 signature
+   with the port's ``sigv4_headers``, the upstream speaks the docker
+   token flow and 307s blob GETs to a presigned listener that refuses an
+   ``Authorization`` header). (a) 1 GiB uploaded under ``s3/``, written
+   back by the origin's retry plane through S3's multipart upload: 16
+   parts of 64 MiB, one initiate, one complete, no abort, the object's
+   SHA-256 its digest, the wall from the 201 to the complete. (b) A fresh
+   1 GiB put straight into S3 under the pather's key; the agent GETs it
+   by digest, the origin refreshes on the miss (one GET of the object),
+   makes its metainfo on the card and seeds it: byte-identical, the
+   metainfo through the tracker equal to hashlib's, the wall split into
+   the origin's refresh (its metainfo request, from ``/metrics``; the
+   fake's S3 GET), the swarm and the serve. (c) ``library/ubuntu:22.04``
+   (a config blob and a layer at BASELINE.json config 2's ``ubuntu``
+   size) only upstream, pulled by tag through the agent's registry: the
+   tag through ``registry_tag``, the blobs through ``registry_blob``;
+   byte-identical, one token fetch a process holding an upstream client,
+   no ``Authorization`` on the presigned hop, the second pull launching
+   nothing. (e) SIGTERM, every child 0. (d) The offline tools on the
+   stopped nodes' stores: ``scrub`` of the agent's store 0 with
+   ``checked`` its blobs, 1 naming the digest of one flipped byte, 2 for
+   a missing root; ``fsck`` of the origin's store 0; ``locate`` naming the
+   origin; ``lint kraken_tpu_torch/`` 0; a ``testfs`` process READY,
+   alive after SIGHUP, 0 on SIGTERM. In (b) and (c) every origin piece
+   and every agent verify on the card, ``sha256_uniform`` launched at the
+   origin and ``sha256_ragged`` at the agent.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
 The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
 swarm leg and the tracker phase's pulls, and each seeder's metainfo; each
-leg of phase 13; phase 14's to 17's children, through their
+leg of phase 13; phase 14's to 19's children, through their
 ``/metrics``) and
 read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
@@ -1942,11 +1982,13 @@ def delta(before: str, after: str, name: str, **labels) -> float:
     return metric(after, name, **labels) - metric(before, name, **labels)
 
 
-def herd_config(root: str, component: str, extra: str = "", name: str = "") -> str:
+def herd_config(root: str, component: str, extra: str = "", name: str = "",
+                backends: str = "backends: []") -> str:
     """A config extending the shipped base by its relative path, with only
-    the keys the component reads: host and ports, its store, no
-    backends. ``name`` (default: the component) names the file and the
-    store, for two nodes of one component."""
+    the keys the component reads: host and ports, its store, its
+    ``backends`` section (none by default). ``name`` (default: the
+    component) names the file and the store, for two nodes of one
+    component."""
     name = name or component
     base = os.path.relpath(REPO / "config" / component / "base.yaml", root)
     path = os.path.join(root, f"{name}.yaml")
@@ -1956,7 +1998,7 @@ def herd_config(root: str, component: str, extra: str = "", name: str = "") -> s
     if component in ("origin", "agent", "build-index"):
         body += [f"store: {os.path.join(root, name)}"]
     if component in ("origin", "build-index"):
-        body += ["backends: []"]
+        body += [backends.rstrip("\n")]
     with open(path, "w") as f:
         f.write("\n".join(body) + "\n" + extra)
     return path
@@ -3592,6 +3634,704 @@ def shards_phase(root: str, card_name_power: str, herd_pull_s: float) -> dict:
             c.stop(kill=True)
 
 
+# -- phase 19, the remote backends and the offline tools ------------------------
+# An origin as kraken deploys one, a cache in front of blob storage: its
+# ``backends:`` maps ``^s3/.*`` to ``s3`` (a fake S3) and ``^library/.*`` to
+# ``registry_blob`` (a fake upstream docker registry, as a cluster fronting
+# Docker Hub has it); a build-index resolves tags through ``registry_tag`` at
+# the same upstream. Tracker, origin, build-index and agent (with its registry
+# endpoint) as four CLI processes started together, ``--hasher cuda``. The two
+# fakes run in this process on the port's ``http_lite``.
+BACKENDS_NS = "s3/blobs"
+BACKENDS_BLOB = GiB
+BACKENDS_PART = 64 * MiB  # the S3 client's shipped multipart threshold and part size
+BACKENDS_REPO = "library/ubuntu"
+BACKENDS_TAG = "22.04"
+BACKENDS_TIMEOUT_S = 300.0
+BACKENDS_KERNELS = SHARDS_KERNELS  # every wrapper, to show which ran
+S3_BUCKET = "kraken"
+S3_KEYS = {"access_key": "AKIAKRAKENSMOKE", "secret_key": "smoke/secret+key", "region": "us-east-1"}
+UPSTREAM_TOKEN = "smoke-token-0"
+UPSTREAM_SERVICE = "smoke-registry"
+S3_WRITE = 4 * MiB  # the fake's GET writes
+
+
+class RemoteFakes:
+    """A fake S3 and a fake upstream docker registry, served by ``http_lite``
+    on a loop in a thread of this process:
+
+    - S3 re-derives every request's SigV4 signature with the port's
+      ``sigv4_headers`` at the client's stated time, holds the body's
+      SHA-256 to ``x-amz-content-sha256`` (a mismatch answers 403 and is
+      kept in ``bad``), and counts multipart initiations, parts,
+      completions and aborts; a GET streams the object in 4 MiB writes,
+      its first and last byte marked; an object's completion is marked.
+    - The upstream answers a request without its token with 401 and a
+      ``Bearer realm=`` challenge, issues the token at ``/token``, serves
+      a manifest by tag or digest with ``Docker-Content-Digest``, and
+      answers each blob GET with a 307 to a second listener that stands in
+      for a presigned store URL; that listener records whether an
+      ``Authorization`` header arrived, and refuses one (400) as S3 does.
+
+    ``busy_s`` sums the S3 handlers' own work (signature checks and body
+    hashes, part joins): the fakes' share of a wall measured around them."""
+
+    def __init__(self):
+        self.objects: dict[str, bytes] = {}
+        self.uploads: dict[str, dict[int, bytes]] = {}
+        self.parts: list[int] = []
+        self.initiated = self.completed = self.aborted = 0
+        self.completed_at: dict[str, float] = {}
+        self.gets: dict[str, list[tuple[float, float]]] = {}
+        self.bad: list[str] = []
+        self.busy_s = 0.0
+        self.upstream: dict[str, bytes] = {}  # "repo/sha256:hex" -> bytes
+        self.tags: dict[str, bytes] = {}  # "repo:tag" -> manifest
+        self.token_fetches = self.challenges = 0
+        self.blob_gets: list[str] = []
+        self.manifest_gets: list[str] = []
+        self.presigned_auth: list[str | None] = []
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self._thread.start()
+        self._runners: list = []
+        self.s3_addr, self.upstream_addr, self.store_addr = self._call(self._start())
+
+    def _call(self, coro, timeout: float = 60.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    async def _start(self) -> list[str]:
+        from kraken_tpu_torch.utils import http_lite as web
+
+        s3 = web.Application(client_max_size=2 * BACKENDS_PART)
+        s3.router.add_route("*", "/{path:.*}", self._s3)
+        up = web.Application()
+        up.router.add_get("/token", self._token)
+        up.router.add_route("*", "/v2/{repo:.+}/blobs/{digest}", self._blob)
+        up.router.add_route("*", "/v2/{repo:.+}/manifests/{ref}", self._manifest)
+        store = web.Application()
+        store.router.add_get("/presigned/{key:.+}", self._presigned)
+        addrs = []
+        for app in (s3, up, store):
+            runner, port = await web.serve(app, "127.0.0.1", 0)
+            self._runners.append(runner)
+            addrs.append(f"127.0.0.1:{port}")
+        return addrs
+
+    def close(self) -> None:
+        async def stop():
+            for runner in self._runners:
+                await runner.cleanup()
+
+        try:
+            self._call(stop())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self._thread.join(10)
+            self.loop.close()
+
+    # -- S3 ------------------------------------------------------------------
+
+    def _check_sigv4(self, req, body: bytes) -> str | None:
+        import datetime
+        from urllib.parse import urlencode
+
+        from kraken_tpu_torch.backend.s3backend import sigv4_headers
+
+        sha = req.headers.get("x-amz-content-sha256", "")
+        if sha != hashlib.sha256(body).hexdigest():
+            return f"{req.method} {req.raw_path}: payload SHA-256 != x-amz-content-sha256"
+        try:
+            now = datetime.datetime.strptime(req.headers["x-amz-date"], "%Y%m%dT%H%M%SZ")
+        except (KeyError, ValueError):
+            return f"{req.method} {req.raw_path}: no x-amz-date"
+        query = urlencode(list(req.query.items()))
+        url = f"http://{req.headers.get('Host', '')}{req.raw_path}" + (f"?{query}" if query else "")
+        want = sigv4_headers(req.method, url, payload_sha256=sha,
+                             now=now.replace(tzinfo=datetime.timezone.utc), **S3_KEYS)
+        if req.headers.get("Authorization") != want["Authorization"]:
+            return f"{req.method} {req.raw_path}: signature mismatch"
+        return None
+
+    async def _s3(self, req):
+        from kraken_tpu_torch.utils import http_lite as web
+
+        body = await req.read()
+        t0 = time.perf_counter()
+        bad = self._check_sigv4(req, body)
+        self.busy_s += time.perf_counter() - t0
+        if bad:
+            self.bad.append(bad)
+            return web.Response(status=403, text=bad)
+        _bucket, _, key = req.path.lstrip("/").partition("/")
+        q = req.query
+        if req.method == "POST" and "uploads" in q:
+            uid = f"mpu-{self.initiated}"
+            self.initiated += 1
+            self.uploads[uid] = {}
+            return web.Response(text=f"<InitiateMultipartUploadResult><UploadId>{uid}"
+                                     "</UploadId></InitiateMultipartUploadResult>",
+                                content_type="application/xml")
+        if req.method == "PUT" and "partNumber" in q:
+            parts = self.uploads.get(q.get("uploadId", ""))
+            if parts is None:
+                return web.Response(status=404)
+            n = int(q["partNumber"])
+            parts[n] = body
+            self.parts.append(len(body))
+            return web.Response(headers={"ETag": f'"{n}-{len(body)}"'})
+        if req.method == "POST" and "uploadId" in q:
+            parts = self.uploads.pop(q["uploadId"], None)
+            if parts is None:
+                return web.Response(status=404)
+            doc = body.decode()
+            nums = [int(m) for m in re.findall(r"<PartNumber>(\d+)</PartNumber>", doc)]
+            etags = re.findall(r"<ETag>([^<]*)</ETag>", doc)
+            if nums != sorted(parts) or etags != [f"{n}-{len(parts[n])}" for n in nums]:
+                return web.Response(status=400, text="InvalidPart")
+            t0 = time.perf_counter()
+            self.objects[key] = b"".join(parts[n] for n in nums)
+            self.busy_s += time.perf_counter() - t0
+            self.completed += 1
+            self.completed_at[key] = time.perf_counter()
+            return web.Response(text=f"<CompleteMultipartUploadResult><Key>{key}</Key>"
+                                     "</CompleteMultipartUploadResult>",
+                                content_type="application/xml")
+        if req.method == "DELETE" and "uploadId" in q:
+            self.uploads.pop(q["uploadId"], None)
+            self.aborted += 1
+            return web.Response(status=204)
+        if req.method == "PUT":
+            self.objects[key] = body
+            self.completed_at[key] = time.perf_counter()
+            return web.Response(status=200)
+        data = self.objects.get(key)
+        if data is None:
+            return web.Response(status=404)
+        if req.method == "HEAD":
+            return web.Response(headers={"Content-Length": str(len(data))})
+        t0 = time.perf_counter()
+        resp = web.StreamResponse()
+        resp.content_length = len(data)
+        await resp.prepare(req)
+        view = memoryview(data)
+        for off in range(0, len(data), S3_WRITE):
+            await resp.write(view[off:off + S3_WRITE])
+        await resp.write_eof()
+        self.gets.setdefault(key, []).append((t0, time.perf_counter()))
+        return resp
+
+    # -- the upstream registry -------------------------------------------------
+
+    def _denied(self, req, repo: str):
+        from kraken_tpu_torch.utils import http_lite as web
+
+        if req.headers.get("Authorization") == f"Bearer {UPSTREAM_TOKEN}":
+            return None
+        self.challenges += 1
+        return web.Response(status=401, headers={"WWW-Authenticate": (
+            f'Bearer realm="http://{self.upstream_addr}/token",service="{UPSTREAM_SERVICE}",'
+            f'scope="repository:{repo}:pull"')})
+
+    async def _token(self, req):
+        from kraken_tpu_torch.utils import http_lite as web
+
+        if (req.query.get("service") != UPSTREAM_SERVICE
+                or not req.query.get("scope", "").startswith("repository:")):
+            return web.Response(status=400)
+        self.token_fetches += 1
+        return web.json_response({"token": UPSTREAM_TOKEN, "expires_in": 300})
+
+    async def _blob(self, req):
+        from kraken_tpu_torch.utils import http_lite as web
+
+        repo, digest = req.match_info["repo"], req.match_info["digest"]
+        denied = self._denied(req, repo)
+        if denied is not None:
+            return denied
+        data = self.upstream.get(f"{repo}/{digest}")
+        if data is None:
+            return web.Response(status=404)
+        if req.method == "HEAD":
+            return web.Response(headers={"Content-Length": str(len(data))})
+        self.blob_gets.append(f"{repo}/{digest}")
+        return web.Response(status=307, headers={
+            "Location": f"http://{self.store_addr}/presigned/{repo}/{digest}"
+                        "?X-Amz-Signature=smoke"})
+
+    async def _manifest(self, req):
+        from kraken_tpu_torch.utils import http_lite as web
+
+        repo, ref = req.match_info["repo"], req.match_info["ref"]
+        denied = self._denied(req, repo)
+        if denied is not None:
+            return denied
+        data = self.tags.get(f"{repo}:{ref}") or self.upstream.get(f"{repo}/{ref}")
+        if data is None:
+            return web.Response(status=404)
+        self.manifest_gets.append(f"{repo}:{ref}")
+        return web.Response(body=data, headers={
+            "Docker-Content-Digest": "sha256:" + hashlib.sha256(data).hexdigest(),
+            "Content-Type": DOCKER2})
+
+    async def _presigned(self, req):
+        from kraken_tpu_torch.utils import http_lite as web
+
+        auth = req.headers.get("Authorization")
+        self.presigned_auth.append(auth)
+        if auth is not None:
+            return web.Response(status=400, text="OnlyOneAuthMechanismAllowed")
+        data = self.upstream.get(req.match_info["key"])
+        if data is None:
+            return web.Response(status=404)
+        return web.Response(body=data)
+
+
+def backends_image() -> tuple[list[bytes], bytes]:
+    """``library/ubuntu:22.04`` upstream: a config blob and one layer at
+    BASELINE.json config 2's ``ubuntu:22.04`` size, seeded, and its schema2
+    manifest."""
+    from kraken_tpu_torch import Digest
+
+    layer = np.random.default_rng(SEED + 90).bytes(dict(SWARM_LAYERS)["ubuntu"])
+    config = json.dumps({"architecture": "amd64", "os": "linux", "rootfs": {
+        "type": "layers", "diff_ids": [str(Digest.from_bytes(layer))]}}).encode()
+    manifest = json.dumps({
+        "schemaVersion": 2, "mediaType": DOCKER2,
+        "config": {"mediaType": "application/vnd.docker.container.image.v1+json",
+                   "size": len(config), "digest": str(Digest.from_bytes(config))},
+        "layers": [{"mediaType": "application/vnd.docker.image.rootfs.diff.tar.gzip",
+                    "size": len(layer), "digest": str(Digest.from_bytes(layer))}],
+    }).encode()
+    return [config, layer], manifest
+
+
+def card_only(leg: str, got: dict, origin_pieces: int) -> None:
+    """The origin's piece hashes and the agent's verify all on the card, and
+    the path's kernels launched at each."""
+    if (got["origin_cpu_pieces"] or got["origin_cuda_pieces"] < origin_pieces
+            or got["origin_fallbacks"]):
+        raise AssertionError(f"backends ({leg}): origin piece hashing off the card: {got}")
+    if got["agent_cuda_batches"] < 1 or got["agent_host_batches"] or got["agent_cpu_bytes"]:
+        raise AssertionError(f"backends ({leg}): agent verify off the card: {got}")
+    if not got["origin_launches"]["sha256_uniform"] or not got["agent_launches"]["sha256_ragged"]:
+        raise AssertionError(f"backends ({leg}): a kernel of the path did not launch: {got}")
+
+
+def _timed_sha256(data) -> float:
+    """hashlib's SHA-256 of ``data``, timed: what the S3 client pays a part
+    for its SigV4 payload hash."""
+    t0 = time.perf_counter()
+    hashlib.sha256(data).digest()
+    return time.perf_counter() - t0
+
+
+def backends_phase(root: str, card_name_power: str) -> dict:
+    """Phase 19: writeback to S3, a cold 1 GiB pull refreshed from S3, an
+    image pulled through the upstream registry by tag, the offline tools on
+    the stopped nodes' stores. Returns the children's counters that the
+    kernels line carries."""
+    from kraken_tpu_torch import Digest, MetaInfo
+    from kraken_tpu_torch.backend.namepath import get_pather
+    from kraken_tpu_torch.configutil import load_config
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.origin.metainfogen import PieceLengthConfig
+    from kraken_tpu_torch.utils import http_lite
+    from kraken_tpu_torch.utils.deadline import RPCConfig
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+
+    fakes = RemoteFakes()
+    children: list[HerdChild] = []
+    hasher = ["--hasher", HERD_HASHER]
+    try:
+        s3 = ", ".join(f"{k}: {json.dumps(v)}" for k, v in {
+            "endpoint": f"http://{fakes.s3_addr}", "bucket": S3_BUCKET, **S3_KEYS}.items())
+        origin_backends = (
+            "backends:\n"
+            f'  - namespace: "^s3/.*"\n    backend: s3\n    config: {{{s3}}}\n'
+            f'  - namespace: "^library/.*"\n    backend: registry_blob\n'
+            f'    config: {{address: "{fakes.upstream_addr}"}}\n')
+        tag_backends = ("backends:\n"
+                        f'  - namespace: ".*"\n    backend: registry_tag\n'
+                        f'    config: {{address: "{fakes.upstream_addr}"}}\n')
+        t_port, o_port, b_port = free_ports(3)
+        t_addr, o_addr, b_addr = (f"127.0.0.1:{p}" for p in (t_port, o_port, b_port))
+        specs = [
+            ("tracker", herd_config(root, "tracker"), ["--port", str(t_port), "--origins", o_addr]),
+            ("origin", herd_config(root, "origin", backends=origin_backends),
+             ["--port", str(o_port), "--tracker", t_addr, *hasher]),
+            ("build-index", herd_config(root, "build-index", backends=tag_backends),
+             ["--port", str(b_port), "--origins", o_addr]),
+            ("agent", herd_config(root, "agent", "registry_port: 0\n"),
+             ["--tracker", t_addr, "--build-index", b_addr, *hasher]),
+        ]
+        for name, cfg, flags in specs:
+            children.append(HerdChild(root, name, [name, "--config", cfg, *flags], wait=False))
+        for c in children:
+            c.wait_ready()
+        tracker, origin, bindex, agent = children
+        registry = agent.ready.get("registry_addr")
+        if not registry:
+            raise AssertionError(f"backends: the agent reported no registry: {agent.ready}")
+        ready = {c.name: c.ready_s for c in children}
+        emit({"phase": "backends", "ready_s": ready,
+              "addrs": {**{c.name: c.addr for c in children}, "agent_registry": registry,
+                        "fake_s3": fakes.s3_addr, "fake_upstream": fakes.upstream_addr,
+                        "fake_presigned_store": fakes.store_addr},
+              "what": "four processes started together; the origin's backends: s3 and "
+                      "registry_blob, the build-index's: registry_tag", "card": card_name_power})
+        pather = get_pather("sharded_docker_blob")
+        lengths = PieceLengthConfig()
+        timeout = http_lite.ClientTimeout(total=BACKENDS_TIMEOUT_S)
+
+        def counters(o0: str, o1: str, a0: str, a1: str) -> dict:
+            return {
+                "origin_cuda_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cuda"),
+                "origin_cpu_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cpu"),
+                "origin_fallbacks": delta(o0, o1, "ingest_fallbacks_total"),
+                "origin_dedup_chunks": delta(o0, o1, "origin_dedup_unique_chunks"),
+                "origin_refresh_pulls": delta(o0, o1, "blob_refresh_pulls_total", result="ok"),
+                "agent_cuda_batches": delta(a0, a1, "verify_batches_total", path="cuda"),
+                "agent_host_batches": delta(a0, a1, "verify_batches_total", path="host"),
+                "agent_verified_pieces": delta(a0, a1, "verify_pieces_total"),
+                "agent_cuda_bytes": delta(a0, a1, "hasher_bytes_total", hasher="cuda"),
+                "agent_cpu_bytes": delta(a0, a1, "hasher_bytes_total", hasher="cpu"),
+                "origin_launches": {k: delta(o0, o1, "kernel_launches_total", kernel=k)
+                                    for k in BACKENDS_KERNELS},
+                "agent_launches": {k: delta(a0, a1, "kernel_launches_total", kernel=k)
+                                   for k in BACKENDS_KERNELS},
+            }
+
+        def dedup_done(o0: str, blobs: int) -> str:
+            """The origin's metrics once its dedup pass has indexed ``blobs``
+            more blobs (every counter then holds the whole path)."""
+            o1 = origin.metrics()
+            deadline = time.perf_counter() + BACKENDS_TIMEOUT_S
+            while (metric(o1, "origin_dedup_indexed_blobs")
+                   - metric(o0, "origin_dedup_indexed_blobs") < blobs):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("backends: the origin's dedup pass did not finish")
+                time.sleep(0.5)
+                o1 = origin.metrics()
+            return o1
+
+        # (a) Writeback: 1 GiB committed under s3/..., written back by the
+        # origin's retry plane through S3's multipart upload.
+        blob_a = np.random.default_rng(SEED + 91).bytes(BACKENDS_BLOB)
+        d_a = Digest.from_bytes(blob_a)
+        key_a = pather("", d_a.hex)
+        o0 = origin.metrics()
+
+        async def upload() -> float:
+            client = BlobClient(origin.addr, HTTPClient(retries=0))
+            try:
+                await asyncio.wait_for(client.upload(BACKENDS_NS, d_a, blob_a,
+                                                     chunk_size=ORIGIN_CHUNK), BACKENDS_TIMEOUT_S)
+            finally:
+                await client.close()
+            return time.perf_counter()
+
+        t0 = time.perf_counter()
+        acked = asyncio.run(upload())
+        deadline = acked + BACKENDS_TIMEOUT_S
+        while key_a not in fakes.completed_at:
+            if time.perf_counter() > deadline or fakes.aborted:
+                raise AssertionError(f"backends (a): no writeback; initiated {fakes.initiated}, "
+                                     f"parts {len(fakes.parts)}, aborted {fakes.aborted}, "
+                                     f"bad {fakes.bad[:3]}")
+            time.sleep(0.01)
+        landed = fakes.completed_at[key_a]
+        o1 = dedup_done(o0, 1)
+        sigv4_hash_s = sum(_timed_sha256(memoryview(blob_a)[off:off + BACKENDS_PART])
+                           for off in range(0, BACKENDS_BLOB, BACKENDS_PART))
+        got_a = {"initiated": fakes.initiated, "completed": fakes.completed,
+                 "aborted": fakes.aborted, "parts": len(fakes.parts),
+                 "part_bytes": sorted(set(fakes.parts)), "bad_requests": len(fakes.bad)}
+        want_a = {"initiated": 1, "completed": 1, "aborted": 0,
+                  "parts": BACKENDS_BLOB // BACKENDS_PART, "part_bytes": [BACKENDS_PART],
+                  "bad_requests": 0}
+        if got_a != want_a:
+            raise AssertionError(f"backends (a): multipart {got_a}, want {want_a}")
+        if hashlib.sha256(fakes.objects[key_a]).hexdigest() != d_a.hex:
+            raise AssertionError("backends (a): the object's SHA-256 is not its digest")
+        emit({"phase": "backends", "leg": "a_writeback", "blob_bytes": BACKENDS_BLOB,
+              "upload_to_201_s": acked - t0, "writeback_s": landed - acked,
+              "writeback_gbps": BACKENDS_BLOB / (landed - acked) / 1e9,
+              "fake_busy_s": fakes.busy_s, "sigv4_hashlib_s": sigv4_hash_s,
+              **got_a, "origin_launches": launch_rise(o0, o1),
+              "what": "writeback_s: from the origin's 201 to the fake's CompleteMultipartUpload "
+                      "(the retry plane's pick-up, the signed 64 MiB part PUTs, the complete); "
+                      "fake_busy_s: the fake's own signature and body checks within it; "
+                      "sigv4_hashlib_s: hashlib over the parts in this process, the client's "
+                      "payload hashes for SigV4 at this host's rate",
+              "checks": [f"{want_a['parts']} parts of 64 MiB, every request's SigV4 re-derived "
+                         "by the fake",
+                         "initiated 1, completed 1, aborted 0",
+                         "the object's SHA-256 = its digest"], "card": card_name_power})
+
+        # (b) The cold refresh: a fresh 1 GiB only in S3; the agent GETs it
+        # by digest, the origin refreshes on the miss (S3 GET, commit,
+        # metainfo on the card), then the swarm, then the serve.
+        blob_b = np.random.default_rng(SEED + 92).bytes(BACKENDS_BLOB)
+        d_b = Digest.from_bytes(blob_b)
+        key_b = pather("", d_b.hex)
+        fakes.objects[key_b] = blob_b
+        pieces_b = -(-BACKENDS_BLOB // lengths.piece_length(BACKENDS_BLOB))
+        o0, a0 = origin.metrics(), agent.metrics()
+        mi_path = "/namespace/{ns}/blobs/{d}/metainfo"
+
+        async def cold_pull() -> dict:
+            url = f"http://{agent.addr}/namespace/{quote(BACKENDS_NS, safe='')}/blobs/{d_b.hex}"
+            h = hashlib.sha256()
+            size = 0
+            async with http_lite.ClientSession(timeout=timeout) as s:
+                t0 = time.perf_counter()
+                async with s.get(url) as r:
+                    head = time.perf_counter()
+                    async for chunk in r.content.iter_chunked(1 << 20):
+                        h.update(chunk)
+                        size += len(chunk)
+                end = time.perf_counter()
+            if r.status != 200:
+                raise AssertionError(f"backends (b): GET on the agent answered {r.status}")
+            return {"t0": t0, "head": head, "end": end, "digest": h.hexdigest(), "size": size}
+
+        r = asyncio.run(cold_pull())
+        if r["digest"] != d_b.hex or r["size"] != BACKENDS_BLOB:
+            raise AssertionError("backends (b): the blob through the agent is not byte-identical")
+        o1 = dedup_done(o0, 1)
+        a1 = agent.metrics()
+        got_b = counters(o0, o1, a0, a1)
+        card_only("b", got_b, pieces_b)
+        gets = fakes.gets.get(key_b, [])
+        if len(gets) != 1 or got_b["origin_refresh_pulls"] != 1:
+            raise AssertionError(f"backends (b): {len(gets)} GETs of the object, "
+                                 f"{got_b['origin_refresh_pulls']} refreshes (one each wanted)")
+        refresh_n = delta(o0, o1, "http_request_duration_seconds_count", component="origin",
+                          endpoint=mi_path, method="GET")
+        refresh_s = delta(o0, o1, "http_request_duration_seconds_sum", component="origin",
+                          endpoint=mi_path, method="GET")
+        (g0, g1), = gets
+        with urllib.request.urlopen(
+                f"http://{tracker.addr}/namespace/{quote(BACKENDS_NS, safe='')}/blobs/"
+                f"{d_b.hex}/metainfo", timeout=60) as resp:
+            mi_raw = resp.read()
+        want_mi = MetaInfo(d_b, BACKENDS_BLOB, lengths.piece_length(BACKENDS_BLOB),
+                           hashlib_pieces(blob_b, lengths.piece_length(BACKENDS_BLOB)))
+        if mi_raw != want_mi.serialize():
+            raise AssertionError("backends (b): the refreshed metainfo != MetaInfo over "
+                                 "hashlib's piece hashes")
+        stages = {s: delta(o0, o1, "ingest_stage_seconds_sum", stage=s)
+                  for s in ("read", "pack", "transfer", "hash")}
+        head_s, pull_s = r["head"] - r["t0"], r["end"] - r["t0"]
+        emit({"phase": "backends", "leg": "b_cold_refresh", "blob_bytes": BACKENDS_BLOB,
+              "pieces": pieces_b, "pull_s": pull_s, "gbps": BACKENDS_BLOB / pull_s / 1e9,
+              "to_first_s3_byte_s": g0 - r["t0"], "s3_get_s": g1 - g0,
+              "s3_get_gbps": BACKENDS_BLOB / (g1 - g0) / 1e9,
+              "refresh_s": refresh_s, "refresh_requests": refresh_n,
+              "commit_and_metainfo_s": refresh_s - (g1 - g0),
+              "swarm_s": head_s - refresh_s, "serve_s": pull_s - head_s,
+              "origin_ingest_stage_s": {k: v for k, v in stages.items() if v},
+              **{k: got_b[k] for k in ("origin_launches", "agent_launches",
+                                       "origin_cuda_pieces", "origin_dedup_chunks",
+                                       "agent_cuda_batches", "agent_verified_pieces")},
+              "what": "refresh_s: the origin's metainfo request (the tracker's, on the miss) "
+                      "from /metrics: the S3 GET (s3_get_s, the fake's first to last byte), "
+                      "the commit's digest check and the metainfo on the card; swarm_s: the "
+                      "rest up to the agent's response head; serve_s: its body",
+              "checks": ["blob byte-identical through the agent (SHA-256 = digest)",
+                         "one GET of the object at the fake, one refresh at the origin",
+                         "the metainfo through the tracker == MetaInfo over hashlib",
+                         "no hashlib piece at the origin, no host verify batch at the agent"],
+              "card": card_name_power})
+
+        # (c) Pull-through by tag: the upstream holds the image; the agent's
+        # registry resolves the tag through the build-index's registry_tag and
+        # pulls the blobs, which the origin fetches through registry_blob.
+        blobs_c, manifest = backends_image()
+        m_digest = Digest.from_bytes(manifest)
+        for b in (*blobs_c, manifest):
+            fakes.upstream[f"{BACKENDS_REPO}/{Digest.from_bytes(b)}"] = b
+        fakes.tags[f"{BACKENDS_REPO}:{BACKENDS_TAG}"] = manifest
+        pieces_c = sum(-(-len(b) // lengths.piece_length(len(b))) for b in (*blobs_c, manifest))
+
+        async def pull_by_tag() -> dict:
+            base = f"http://{registry}/v2/{BACKENDS_REPO}"
+            got = {"blobs": []}
+            async with http_lite.ClientSession(timeout=timeout) as s:
+                t0 = time.perf_counter()
+                async with s.request("GET", f"{base}/manifests/{BACKENDS_TAG}",
+                                     headers=DOCKER_ACCEPT) as r:
+                    head_s = time.perf_counter() - t0
+                    body = await r.read()
+                if r.status != 200 or body != manifest:
+                    raise AssertionError(f"backends (c): manifest by tag {r.status}, "
+                                         f"identical {body == manifest}")
+                got["manifest"] = {"swarm_s": head_s, "serve_s": time.perf_counter() - t0 - head_s}
+                for want in blobs_c:
+                    d = Digest.from_bytes(want)
+                    t0 = time.perf_counter()
+                    async with s.request("GET", f"{base}/blobs/{d}") as r:
+                        head_s = time.perf_counter() - t0
+                        body = await r.read()
+                    if r.status != 200 or body != want:
+                        raise AssertionError(f"backends (c): blob {str(d)[:19]} {r.status}, "
+                                             f"identical {body == want}")
+                    got["blobs"].append({"blob_bytes": len(want), "swarm_s": head_s,
+                                         "serve_s": time.perf_counter() - t0 - head_s})
+            return got
+
+        o0, a0 = origin.metrics(), agent.metrics()
+        t0 = time.perf_counter()
+        first = asyncio.run(pull_by_tag())
+        pull_c_s = time.perf_counter() - t0
+        o1 = dedup_done(o0, 3)
+        a1 = agent.metrics()
+        got_c = counters(o0, o1, a0, a1)
+        card_only("c", got_c, pieces_c)
+        upstream_c = {"token_fetches": fakes.token_fetches, "challenges": fakes.challenges,
+                      "blob_gets": len(fakes.blob_gets), "manifest_gets": len(fakes.manifest_gets),
+                      "presigned_gets": len(fakes.presigned_auth),
+                      "presigned_with_authorization": sum(a is not None
+                                                          for a in fakes.presigned_auth)}
+        t0 = time.perf_counter()
+        second = asyncio.run(pull_by_tag())
+        second_s = time.perf_counter() - t0
+        o2, a2 = origin.metrics(), agent.metrics()
+        second_launches = {"origin": launch_rise(o1, o2), "agent": launch_rise(a1, a2)}
+        # One token a process that holds an upstream client (the build-index's
+        # registry_tag, the origin's registry_blob), each cached for the rest.
+        want_c = {"token_fetches": 2, "blob_gets": 3, "manifest_gets": 1, "presigned_gets": 3,
+                  "presigned_with_authorization": 0}
+        if {k: upstream_c[k] for k in want_c} != want_c or got_c["origin_refresh_pulls"] != 3:
+            raise AssertionError(f"backends (c): upstream {upstream_c}, want {want_c}; "
+                                 f"refreshes {got_c['origin_refresh_pulls']}")
+        if (any(second_launches["origin"].values()) or any(second_launches["agent"].values())
+                or fakes.token_fetches != 2 or len(fakes.blob_gets) != 3):
+            raise AssertionError(f"backends (c): the second pull worked again: "
+                                 f"{second_launches}, upstream {fakes.token_fetches} tokens, "
+                                 f"{len(fakes.blob_gets)} blob GETs")
+        with urllib.request.urlopen(
+                f"http://{bindex.addr}/tags/"
+                f"{quote(f'{BACKENDS_REPO}:{BACKENDS_TAG}', safe='')}", timeout=30) as resp:
+            tag_digest = resp.read().decode()
+        if tag_digest != str(m_digest):
+            raise AssertionError(f"backends (c): the build-index holds {tag_digest}")
+        emit({"phase": "backends", "leg": "c_pull_through", "pull_s": pull_c_s, "first": first,
+              "second_pull_s": second_s, "second": second, "upstream": upstream_c,
+              "second_pull_launches": second_launches,
+              **{k: got_c[k] for k in ("origin_launches", "agent_launches", "origin_cuda_pieces",
+                                       "agent_cuda_batches", "agent_verified_pieces",
+                                       "origin_refresh_pulls")},
+              "checks": ["manifest by tag and every blob byte-identical to the upstream's",
+                         "one token fetch a process holding an upstream client (2), "
+                         "none more on the second pull",
+                         "no Authorization header on the presigned hop",
+                         "the build-index's tag = the manifest's digest",
+                         "no hashlib piece at the origin, no host verify batch at the agent",
+                         "the second pull launched nothing"], "card": card_name_power})
+
+        # (e) Drains: SIGTERM, each child 0 within its drain timeout.
+        drains = {}
+        for c in (agent, bindex, origin, tracker):
+            cfg = load_config(str(REPO / "config" / c.name / "base.yaml"))
+            limit = RPCConfig.from_dict(cfg.get("rpc")).drain_timeout_seconds
+            t0 = time.perf_counter()
+            rc = c.stop()
+            drains[c.name] = time.perf_counter() - t0
+            quiesced = c.name == "build-index" or "drain quiesced" in c.log()
+            if rc != 0 or drains[c.name] > limit or not quiesced:
+                raise AssertionError(f"backends (e): {c.name} exit {rc} after "
+                                     f"{drains[c.name]:.1f} s:\n" + c.log()[-3000:])
+        children.clear()
+
+        # (d) The offline tools on the stopped nodes' stores, as an operator
+        # runs them: each a CLI process, those that share no store at once.
+        tools = {}
+        agent_root, origin_root = os.path.join(root, "agent"), os.path.join(root, "origin")
+        held = [d_b, *(Digest.from_bytes(b) for b in (*blobs_c, manifest))]
+
+        def tool(args: list[str]) -> tuple[int, str, float]:
+            t0 = time.perf_counter()
+            rc, out = cli_tool(args)
+            return rc, out, time.perf_counter() - t0
+
+        t_tools = time.perf_counter()
+        with ThreadPoolExecutor(5) as ex:
+            runs = {name: ex.submit(tool, args) for name, args in {
+                "scrub": ["scrub", "--store", agent_root],
+                "scrub_no_root": ["scrub", "--store", os.path.join(root, "no-such-store")],
+                "fsck": ["fsck", "--root", origin_root],
+                "locate": ["locate", "--cluster", o_addr, "--digest", str(d_b)],
+                "lint": ["lint", "kraken_tpu_torch/"],
+            }.items()}
+            testfs = HerdChild(root, "testfs", ["testfs", "--port", "0"])
+            testfs.proc.send_signal(signal.SIGHUP)
+            time.sleep(0.3)
+            alive = testfs.proc.poll() is None
+            rc = testfs.stop()
+            tools["testfs"] = {"ready": testfs.ready, "ready_s": testfs.ready_s,
+                               "alive_after_sighup": alive, "rc": rc}
+            done = {name: f.result() for name, f in runs.items()}
+        if not alive or rc != 0 or testfs.ready.get("component") != "testfs":
+            raise AssertionError(f"backends (d): testfs {tools['testfs']}")
+        rc, out, secs = done["scrub"]
+        last = json.loads(out.strip().splitlines()[-1])
+        tools["scrub"] = {"rc": rc, "checked": last.get("checked"), "s": secs}
+        if rc != 0 or last != {"event": "scrub_done", "checked": len(held), "corrupt": 0}:
+            raise AssertionError(f"backends (d): scrub of the agent's store: {rc} {out[-500:]}")
+        rc, out, secs = done["scrub_no_root"]
+        tools["scrub_no_root"] = {"rc": rc, "s": secs}
+        if rc != 2:
+            raise AssertionError(f"backends (d): scrub of a missing root exited {rc}")
+        rc, out, secs = done["fsck"]
+        tools["fsck"] = {"rc": rc, "report": json.loads(out.strip().splitlines()[-1]), "s": secs}
+        if rc != 0:
+            raise AssertionError(f"backends (d): fsck of the origin's store: {rc} {out[-500:]}")
+        rc, out, secs = done["locate"]
+        tools["locate"] = {"rc": rc, **json.loads(out), "s": secs}
+        if rc != 0 or tools["locate"]["replicas"] != [o_addr]:
+            raise AssertionError(f"backends (d): locate {rc} {out[-500:]}")
+        rc, out, secs = done["lint"]
+        lint = json.loads(out.strip().splitlines()[-1])
+        tools["lint"] = {"rc": rc, "files": lint.get("files"), "findings": lint.get("findings"),
+                         "s": secs}
+        if rc != 0 or lint.get("findings") != 0:
+            raise AssertionError(f"backends (d): lint kraken_tpu_torch/: {rc} {out[-2000:]}")
+        victim = Digest.from_bytes(blobs_c[0])
+        path = os.path.join(agent_root, "cache", victim.hex[:2], victim.hex[2:4], victim.hex)
+        with open(path, "r+b") as f:
+            byte = f.read(1)
+            f.seek(0)
+            f.write(bytes([byte[0] ^ 0x01]))
+        rc, out, secs = tool(["scrub", "--store", agent_root])
+        lines = [json.loads(line) for line in out.strip().splitlines()]
+        tools["scrub_flipped"] = {"rc": rc, "corrupt": [x["digest"] for x in lines
+                                                        if x.get("event") == "corrupt"],
+                                  "s": secs}
+        if rc != 1 or tools["scrub_flipped"]["corrupt"] != [victim.hex]:
+            raise AssertionError(f"backends (d): scrub after a flipped byte: {rc} {out[-500:]}")
+        tools_s = time.perf_counter() - t_tools
+        emit({"phase": "backends", "leg": "d_tools", "tools": tools, "wall_s": tools_s,
+              "checks": [f"scrub of the agent's store: 0, checked {len(held)} (its blobs)",
+                         "scrub after one flipped byte: 1, naming that digest",
+                         "scrub of a missing root: 2", "fsck of the origin's store: 0",
+                         "locate names the origin", "lint kraken_tpu_torch/: 0, no finding",
+                         "testfs: READY, alive after SIGHUP, 0 on SIGTERM"],
+              "card": card_name_power})
+        emit({"phase": "backends", "leg": "e_drains", "drain_to_exit_s": drains,
+              "card": card_name_power})
+        return {"launches": {"origin": {k: got_b["origin_launches"][k] + got_c["origin_launches"][k]
+                                        for k in BACKENDS_KERNELS},
+                             "agent": {k: got_b["agent_launches"][k] + got_c["agent_launches"][k]
+                                       for k in BACKENDS_KERNELS}},
+                "cold_pull_s": pull_s, "refresh_s": refresh_s, "writeback_s": landed - acked}
+    finally:
+        for c in children:
+            c.stop(kill=True)
+        fakes.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4458,6 +5198,23 @@ def main() -> int:
     if any(own.read().values()):
         raise AssertionError(f"shards: this process launched kernels: {own.read()}")
 
+    # -- 19. backends: S3 writeback and cold refresh, pull-through, tools --
+    gc.collect()
+    work.mkdir(exist_ok=True)
+    backends_start = time.perf_counter()
+    own.reset()
+    try:
+        bk = backends_phase(tempfile.mkdtemp(dir=work), card.name_power)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    backends_secs = time.perf_counter() - backends_start
+    if any(own.read().values()):
+        raise AssertionError(f"backends: this process launched kernels: {own.read()}")
+
+    def backends_launches(name: str) -> dict:
+        """Phase 19's launches of one wrapper, by process ((b) and (c))."""
+        return {proc: bk["launches"][proc].get(name, 0.0) for proc in ("origin", "agent")}
+
     def shards_launches(name: str) -> dict:
         """Phase 18's launches of one wrapper, by process."""
         return {proc: sh["launches"][proc][name] for proc in ("origin", "agent_a", "agent_b")}
@@ -4500,6 +5257,7 @@ def main() -> int:
          "origin_http_launches": origin_launches("sha256_uniform"), "delta_launches": delta_launches("sha256_uniform"),
          "operator_launches": operator_launches("sha256_uniform"),
          "shards_launches": shards_launches("sha256_uniform"),
+         "backends_launches": backends_launches("sha256_uniform"),
          "herd_launches": {"origin": hc["origin_launches"]["sha256_uniform"],
                            "agent": hc["agent_launches"]["sha256_uniform"]},
          "herd_origin_ingest_windows": hc["origin_ingest_windows"],
@@ -4517,6 +5275,7 @@ def main() -> int:
          "origin_http_launches": origin_launches("sha256_ragged"), "delta_launches": delta_launches("sha256_ragged"),
          "operator_launches": operator_launches("sha256_ragged"),
          "shards_launches": shards_launches("sha256_ragged"),
+         "backends_launches": backends_launches("sha256_ragged"),
          "operator_pull_busy_share": op["busy_share"],
          "herd_launches": {"origin": hc["origin_launches"]["sha256_ragged"],
                            "agent": hc["agent_launches"]["sha256_ragged"]},
@@ -4539,6 +5298,7 @@ def main() -> int:
          "origin_http_launches": origin_launches("pack_tiles_device"), "delta_launches": delta_launches("pack_tiles_device"),
          "operator_launches": operator_launches("pack_tiles_device"),
          "shards_launches": shards_launches("pack_tiles_device"),
+         "backends_launches": backends_launches("pack_tiles_device"),
          "shape": "1024 x 4 MiB", "plain_shape": "1024 x 4 MiB"},
         {"name": "sha256_packed_tiles", "route": "cuda",
          "source": "kraken_tpu_torch/csrc/sha256_packed.cu",
@@ -4550,6 +5310,7 @@ def main() -> int:
          "origin_http_launches": origin_launches("sha256_packed_tiles"), "delta_launches": delta_launches("sha256_packed_tiles"),
          "operator_launches": operator_launches("sha256_packed_tiles"),
          "shards_launches": shards_launches("sha256_packed_tiles"),
+         "backends_launches": backends_launches("sha256_packed_tiles"),
          **sha_entry(packed_main, PACKED_KERNEL)},
         {"name": "gear_candidates", "kernel": GEAR_KERNEL, "route": "cuda",
          "source": "kraken_tpu_torch/csrc/gear.cu",
@@ -4562,6 +5323,7 @@ def main() -> int:
          "origin_http_launches": origin_launches("gear_candidates"), "delta_launches": delta_launches("gear_candidates"),
          "operator_launches": operator_launches("gear_candidates"),
          "shards_launches": shards_launches("gear_candidates"),
+         "backends_launches": backends_launches("gear_candidates"),
          "herd_launches": {"origin": hc["origin_launches"]["gear_candidates"],
                            "agent": hc["agent_launches"]["gear_candidates"]},
          "front_door_launches": {"origin": fc["origin_launches"]["gear_candidates"],
@@ -4574,7 +5336,8 @@ def main() -> int:
          "relayout_launches": relayout_launches,
          "origin_http_launches": origin_launches("transpose_only"), "delta_launches": delta_launches("transpose_only"),
          "operator_launches": operator_launches("transpose_only"),
-         "shards_launches": shards_launches("transpose_only"), "max_abs_err": t_err,
+         "shards_launches": shards_launches("transpose_only"),
+         "backends_launches": backends_launches("transpose_only"), "max_abs_err": t_err,
          "ms": full["transpose_only_ms"], "plain_ms": full["transpose_only_plain_ms"],
          "bound_ms": t_bound["bound_ms"], "bound_by": t_bound["bound_by"], "library_ms": None,
          "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
@@ -4584,7 +5347,7 @@ def main() -> int:
         "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,
         "herd_seconds": herd_secs, "front_door_seconds": front_secs,
         "delta_seconds": delta_secs, "operator_seconds": operator_secs,
-        "shards_seconds": shards_secs,
+        "shards_seconds": shards_secs, "backends_seconds": backends_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 
 A ``Manager`` resolves a namespace (by regex) to a backend client; the
 origin writes committed blobs back through it and fills cache misses from
-it. The port registers ``file`` and ``testfs``. The reference's other
-backends (``http``, ``shadow``, ``s3``, ``gcs``, ``hdfs``,
-``registry_blob``, ``registry_tag``) are not ported yet (ROADMAP A7h):
-``make_backend`` of one of their names raises ``ValueError`` naming A7h.
+it; build-index persists tags through it. The port registers the
+reference's names: ``file``, ``testfs``, ``http``, ``shadow``, ``s3``,
+``gcs`` (S3's client on GCS's interoperable API), ``hdfs`` (WebHDFS),
+``registry_blob`` and ``registry_tag`` (pull-through from an upstream
+docker registry).
 """
 
 from kraken_tpu_torch.backend.base import (
@@ -28,4 +29,9 @@ __all__ = [
 
 # Import for registration side effects.
 import kraken_tpu_torch.backend.filebackend  # noqa: E402,F401
+import kraken_tpu_torch.backend.httpbackend  # noqa: E402,F401
 import kraken_tpu_torch.backend.testfs  # noqa: E402,F401
+import kraken_tpu_torch.backend.shadowbackend  # noqa: E402,F401
+import kraken_tpu_torch.backend.s3backend  # noqa: E402,F401  (also: gcs)
+import kraken_tpu_torch.backend.hdfsbackend  # noqa: E402,F401
+import kraken_tpu_torch.backend.registrybackend  # noqa: E402,F401

@@ -79,11 +79,6 @@ class BackendClient:
 
 _REGISTRY: Dict[str, Callable[[dict], BackendClient]] = {}
 
-# The reference's backends that the port has not ported yet (ROADMAP A7h).
-UNPORTED_BACKENDS = frozenset({
-    "gcs", "hdfs", "http", "registry_blob", "registry_tag", "s3", "shadow",
-})
-
 
 def register_backend(name: str):
     """Decorator: register a backend factory under ``name`` (the YAML
@@ -97,11 +92,6 @@ def register_backend(name: str):
 
 
 def make_backend(name: str, config: dict | None = None) -> BackendClient:
-    if name in UNPORTED_BACKENDS and name not in _REGISTRY:
-        raise ValueError(
-            f"backend {name!r} is not ported yet (ROADMAP A7h); the port "
-            f"has: {sorted(_REGISTRY)}"
-        )
     try:
         factory = _REGISTRY[name]
     except KeyError:

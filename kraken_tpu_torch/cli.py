@@ -1,8 +1,6 @@
 """Component entry points: one long-running process per component.
 
-The port's copy of the ``tracker``, ``origin``, ``agent``, ``build-index``,
-``proxy``, ``status``, ``trace``, ``flame`` and ``promgen`` subcommands of
-``kraken_tpu.cli``:
+The port's copy of ``kraken_tpu.cli``, every subcommand of it:
 
     python -m kraken_tpu_torch.cli tracker     --config config/tracker/development.yaml
     python -m kraken_tpu_torch.cli origin      --config config/origin/development.yaml --hasher cuda
@@ -16,6 +14,11 @@ The port's copy of the ``tracker``, ``origin``, ``agent``, ``build-index``,
     python -m kraken_tpu_torch.cli trace       agent-dump.jsonl tracker-dump.jsonl origin-dump.jsonl
     python -m kraken_tpu_torch.cli flame       profile-*.jsonl
     python -m kraken_tpu_torch.cli promgen     --out deploy/prometheus
+    python -m kraken_tpu_torch.cli testfs      --port 0
+    python -m kraken_tpu_torch.cli scrub       --store ./astore
+    python -m kraken_tpu_torch.cli fsck        --root ./ostore --expect-namespace
+    python -m kraken_tpu_torch.cli lint        kraken_tpu_torch/ [--json]
+    python -m kraken_tpu_torch.cli locate      --cluster host:7610,host:7611 --digest sha256:<hex>
 
 Config YAML keys mirror the constructor arguments of the assembly nodes
 (:mod:`kraken_tpu_torch.assembly`); flags override config values. The
@@ -29,16 +32,20 @@ SIGINT stops, SIGHUP re-reads ``--config`` and applies what reloads live
 exits non-zero before its READY line); the shipped files' ``hasher: tpu``
 is refused unless a flag overrides it. The build-index and the proxy hash
 nothing on a card, in the reference either. A top-level key that no node
-of the component reads is logged, never dropped silently. The other
-subcommands of the reference exit 2 with a message naming the ROADMAP
-item that ports them.
+of the component reads is logged, never dropped silently.
 
 ``status`` scrapes each node's ``/debug/`` mux and exits 0 (every node
 healthy), 1 (one burning: a firing burn-rate alert, a latched resource
 breach, a failing ``/health``), 2 (one unreachable) or 3 (usage); ``trace``
 joins flight-recorder dumps into span trees (exit 1 on a propagation
 break); ``flame`` folds profile dumps (exit 1 on an unparseable or
-truncated file); ``promgen`` writes ``deploy/prometheus/``.
+truncated file); ``promgen`` writes ``deploy/prometheus/``; ``testfs``
+serves the fake backend (READY line, SIGHUP ignored, 0 on SIGTERM);
+``scrub`` re-hashes every cached blob with hashlib (exit 0 clean, 1
+corrupt, 2 no such root); ``fsck`` reconciles a stopped node's store (0
+clean, 1 repaired, 2 quarantined, 3 usage); ``lint`` runs the project's
+static analysis (0 clean, 1 findings, 3 usage); ``locate`` prints a
+digest's ring placement.
 """
 
 from __future__ import annotations
@@ -52,15 +59,6 @@ import signal
 import sys
 
 from kraken_tpu_torch.configutil import load_config
-
-# The reference's other subcommands, and the ROADMAP item that ports each.
-NOT_PORTED = {
-    "scrub": "A7h",
-    "fsck": "A7h",
-    "lint": "A7h",
-    "locate": "A7h",
-    "testfs": "A7h",
-}
 
 # Top-level keys each component reads (beside the flags). Keys in
 # IGNORED are read by no node of that component in the reference either
@@ -436,6 +434,99 @@ def run_status_tool(nodes: list[str], timeout_seconds: float = 5.0) -> int:
     return code
 
 
+async def _run_testfs(host: str, port: int) -> int:
+    """``testfs``: the fake backend as a process (the reference ships it
+    as tools/bin/testfs), so herds elsewhere can point a ``testfs``
+    backend entry at it. Its READY line is the nodes' contract."""
+    from kraken_tpu_torch.backend.testfs import TestFSServer
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    # A herd-wide SIGHUP must not kill the fake backend (the default
+    # action of an unhandled SIGHUP ends the process; nothing reloads).
+    loop.add_signal_handler(signal.SIGHUP, lambda: None)
+    async with TestFSServer(port=port, host=host) as srv:
+        print("READY " + json.dumps({"component": "testfs", "addr": srv.addr}),
+              flush=True)
+        await stop.wait()
+    return 0
+
+
+def _no_root(root: str) -> bool:
+    """A root that does not exist is refused: ``CAStore`` would create the
+    tree, and a typo'd path would check an empty store clean forever."""
+    if os.path.isdir(root):
+        return False
+    print(json.dumps({"event": "error",
+                      "message": f"store root does not exist: {root}"}), flush=True)
+    return True
+
+
+def run_scrub_tool(root: str) -> int:
+    """``scrub``: re-hash every cached blob with hashlib (a blob's name is
+    its digest) and print each one that differs. Exit 0 clean, 1 corrupt,
+    2 when the root does not exist."""
+    from kraken_tpu_torch.core.digest import Digest
+    from kraken_tpu_torch.store import CAStore
+
+    if _no_root(root):
+        return 2
+    store = CAStore(root)
+    bad: list[str] = []
+    digests = store.list_cache_digests()
+    for d in digests:
+        with open(store.cache_path(d), "rb") as f:
+            actual = Digest.from_reader(f)
+        if actual != d:
+            bad.append(d.hex)
+            print(json.dumps({"event": "corrupt", "digest": d.hex,
+                              "actual": actual.hex}), flush=True)
+    print(json.dumps({"event": "scrub_done", "checked": len(digests),
+                      "corrupt": len(bad)}), flush=True)
+    return 1 if bad else 0
+
+
+def run_fsck_tool(root: str, *, upload_ttl: float = 21600.0,
+                  expect_namespace: bool = False, verify: str = "auto") -> int:
+    """``fsck``: the startup reconciliation, run on a stopped node's store
+    (the chunk tier's too, when the store has one). Exit 0 clean, 1
+    repaired, 2 quarantined (the blob needs the live heal plane or a
+    backend restore), 3 when the root does not exist."""
+    from kraken_tpu_torch.store import CAStore
+    from kraken_tpu_torch.store.recovery import run_fsck
+
+    if _no_root(root):
+        return 3
+    store = CAStore(root)
+    chunks_root = os.path.join(root, "chunks")
+    if os.path.isdir(chunks_root):
+        from kraken_tpu_torch.store.chunkstore import ChunkStore
+
+        store.attach_chunkstore(ChunkStore(chunks_root,
+                                           quarantine_dir=store.quarantine_dir))
+    report = run_fsck(store, upload_ttl_seconds=upload_ttl,
+                      expect_namespace=expect_namespace, verify=verify)
+    print(json.dumps({"event": "fsck_done", "repairs": report.repairs,
+                      "quarantined": report.quarantined,
+                      "verified": report.verified,
+                      "exit_code": report.exit_code}), flush=True)
+    return report.exit_code
+
+
+def locate(addrs: list[str], digest: str, max_replica: int = 3) -> dict:
+    """``locate``: which origins the ring places a digest on, from the
+    same rendezvous hash the cluster runs."""
+    from kraken_tpu_torch.core.digest import Digest
+    from kraken_tpu_torch.placement import HostList, Ring
+
+    ring = Ring(HostList(static=addrs), max_replica=max_replica)
+    d = Digest.from_str(digest)
+    return {"digest": d.hex, "replicas": ring.locations(d),
+            "members": sorted(ring.members)}
+
+
 def _common(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--config", default=None, help="YAML config path")
     parser.add_argument("--host", default=None)
@@ -544,6 +635,41 @@ def main(argv: list[str] | None = None) -> None:
                          help="durable spool root: upload sessions survive"
                               " proxy restarts (docker push resumes)")
 
+    p_testfs = sub.add_parser(
+        "testfs", help="the fake-backend HTTP file server as a process"
+        " (the reference's tools/bin/testfs)"
+    )
+    p_testfs.add_argument("--host", default="127.0.0.1")
+    p_testfs.add_argument("--port", type=int, default=0)
+
+    p_scrub = sub.add_parser(
+        "scrub", help="offline store integrity scrub (exit 1 on corruption)"
+    )
+    p_scrub.add_argument("--store", required=True)
+
+    p_fsck = sub.add_parser(
+        "fsck", help="offline store-tree reconciliation: sweep crash"
+        " debris, re-adopt orphans, verify crash-window blobs; exit"
+        " 0 clean / 1 repaired / 2 unhealable (quarantined) /"
+        " 3 usage error -- deploy scripts gate on it"
+    )
+    p_fsck.add_argument("--root", required=True,
+                        help="store root (the directory holding upload/"
+                             " and cache/)")
+    p_fsck.add_argument("--upload-ttl", type=float, default=21600.0,
+                        help="sweep spool/partial files idle longer than"
+                             " this many seconds (0 disables)")
+    p_fsck.add_argument("--expect-namespace", action="store_true",
+                        help="origin store: re-adopt data files missing"
+                             " a namespace sidecar (never set for agent"
+                             " stores -- agents do not write namespace"
+                             " sidecars)")
+    p_fsck.add_argument("--verify", choices=["auto", "all", "none"],
+                        default="auto",
+                        help="content verification scope: auto ="
+                             " crash-window only (clean-shutdown stamp),"
+                             " all = every blob, none = skip")
+
     p_trace = sub.add_parser(
         "trace", help="offline flight-recorder reassembly: read one or"
         " more trace dump JSONL files (multi-node), join spans by"
@@ -597,6 +723,23 @@ def main(argv: list[str] | None = None) -> None:
     p_status.add_argument("--timeout", type=float, default=5.0,
                           help="per-request scrape timeout in seconds")
 
+    p_lint = sub.add_parser(
+        "lint", help="project-invariant static analysis: AST rules for"
+        " the defect classes this repo keeps re-fixing (blocking IO in"
+        " async frames, dropped asyncio tasks, thread locks across"
+        " awaits, silent excepts, local-import shadowing, wall-clock in"
+        " sim code, metric-catalog drift, failpoint-name typos); exit 0"
+        " clean / 1 findings / 3 usage"
+    )
+    # nargs="*" NOT "+": zero paths must reach run_lint_tool and exit 3
+    # (the documented usage code), never argparse's 2.
+    p_lint.add_argument("paths", nargs="*",
+                        help="files or directories to analyze (the port's"
+                             " gate runs `lint kraken_tpu_torch/`)")
+    p_lint.add_argument("--json", action="store_true",
+                        help="machine-readable findings document instead"
+                             " of one line per finding")
+
     p_promgen = sub.add_parser(
         "promgen", help="regenerate deploy/prometheus/ (scrape config +"
         " burn-rate alert rules) from the shipped SLO defaults; CI"
@@ -605,19 +748,36 @@ def main(argv: list[str] | None = None) -> None:
     p_promgen.add_argument("--out", default="deploy/prometheus",
                            help="output directory")
 
-    for name, item in NOT_PORTED.items():
-        p = sub.add_parser(name, help=f"not ported yet (ROADMAP {item})")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
+    p_locate = sub.add_parser(
+        "locate", help="print a digest's ring placement offline"
+    )
+    p_locate.add_argument("--cluster", required=True,
+                          help="comma-separated origin addrs")
+    p_locate.add_argument("--digest", required=True)
+    p_locate.add_argument("--max-replica", type=int, default=3)
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        # Before parsing: the subcommand's own flags are not the port's.
-        parser.exit(2, f"kraken-tpu-torch: the {argv[0]!r} subcommand is not"
-                       f" ported yet (ROADMAP {NOT_PORTED[argv[0]]}); run it"
-                       " with python -m kraken_tpu.cli\n")
     args = parser.parse_args(argv)
 
+    if args.component == "testfs":
+        sys.exit(asyncio.run(_run_testfs(args.host, args.port)))
+
     # The offline tools: no node, no config.
+    if args.component == "scrub":
+        sys.exit(run_scrub_tool(args.store))
+    if args.component == "fsck":
+        sys.exit(run_fsck_tool(args.root, upload_ttl=args.upload_ttl,
+                               expect_namespace=args.expect_namespace,
+                               verify=args.verify))
+    if args.component == "lint":
+        from kraken_tpu_torch.lint import run_lint_tool
+
+        sys.exit(run_lint_tool(args.paths, json_output=args.json))
+    if args.component == "locate":
+        addrs = [a for a in (args.cluster or "").split(",") if a]
+        if not addrs:
+            parser.error("locate requires --cluster")
+        print(json.dumps(locate(addrs, args.digest, args.max_replica)))
+        return
     if args.component == "trace":
         sys.exit(run_trace_tool(args.dumps, trace_id=args.trace_id,
                                 slowest=args.slowest))

@@ -1464,8 +1464,6 @@ class ShardPool:
             # Folded-stack deltas from the shard's own sampler: one
             # /debug/pprof/profile (and one flame collapse) covers the
             # main loop AND the forked serve plane.
-            from kraken_tpu_torch.utils import profiler
-
             profiler.PROFILER.record_foreign(
                 str(msg.get("node") or w.label),
                 msg.get("stacks") or [],

@@ -52,7 +52,7 @@ class StormFilter(logging.Filter):
                     "WARN/ERROR lines dropped by the log-storm filter",
                 )
             self._counter.inc(n)
-        except Exception:  # pragma: no cover - logging or counting here recurses into this very filter
+        except Exception:  # kt-lint: disable=bare-except  # pragma: no cover - inside the log filter itself: logging or counting here recurses into this very filter
             pass
 
     def filter(self, record: logging.LogRecord) -> bool:

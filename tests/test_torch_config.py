@@ -507,14 +507,6 @@ def test_the_data_plane_workers_flags_reach_the_scheduler_config(tmp_path, monke
     assert (shared.data_plane_workers, shared.leech_workers, shared.leech_ring_mb) == (1, 0, 32)
 
 
-@pytest.mark.parametrize("name,item", sorted(cli.NOT_PORTED.items()))
-def test_the_other_subcommands_exit_2_naming_their_item(capsys, name, item):
-    with pytest.raises(SystemExit) as ei:
-        cli.main([name, "--anything"])
-    assert ei.value.code == 2
-    assert item in capsys.readouterr().err
-
-
 def test_a_registry_port_needs_a_build_index(capsys, tmp_path):
     """The reference's rule: the agent's registry endpoint resolves tags
     through a build-index, so a registry port without one exits 2."""

@@ -66,7 +66,11 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
                    "dockerregistry/registry.py", "buildindex/__init__.py",
                    "buildindex/tagtype.py", "buildindex/tagstore.py",
                    "buildindex/server.py", "utils/sanitize.py", "utils/promgen.py",
-                   "p2p/shardpool.py"):
+                   "p2p/shardpool.py", "core/fixtures.py", "backend/httpbackend.py",
+                   "backend/shadowbackend.py", "backend/s3backend.py",
+                   "backend/hdfsbackend.py", "backend/registrybackend.py",
+                   "lint/__init__.py", "lint/findings.py", "lint/pragmas.py",
+                   "lint/rules.py", "lint/project.py", "lint/engine.py", "p2p/sim.py"):
         assert f"kraken_tpu_torch/{module}" in scanned, module
     bad = {
         str(f.relative_to(REPO)): m
@@ -581,3 +585,61 @@ def test_a_card_origins_dedup_and_chunk_conversion_hash_no_piece_with_hashlib(mo
     assert not [c for c in calls if c[0] in piece_sites or c[1] == "verify_piece"], calls
     chunk_calls = [c for c in calls if c[1] in ("_fp_of", "chunk_fp")]
     assert chunk_calls == [("kraken_tpu_torch.store.chunkstore", "_fp_of")] * len(set(md.fps))
+
+
+def test_a_card_origins_refresh_hashes_no_piece_with_hashlib(monkeypatch, tmp_path):
+    """A ``cuda`` origin (the kernels' plain versions here) that fills a
+    miss from its backend (``blobrefresh.Refresher``: the download, the
+    commit's whole-blob digest, then ``Generator.generate``) hashes every
+    piece in one batched pass of the ``cuda`` hasher, and none with
+    hashlib: the commit's digest check is the only SHA-256 on the host."""
+    import asyncio
+    import hashlib
+
+    from kraken_tpu_torch.backend import Manager
+    from kraken_tpu_torch.origin.blobrefresh import Refresher
+    from kraken_tpu_torch.origin.server import OriginServer
+    from kraken_tpu_torch.utils import http_lite
+
+    blob = bytes(np.random.default_rng(9).integers(0, 256, 9_000, dtype=np.uint8))
+    d = kt.Digest.from_bytes(blob)
+    backend_root = tmp_path / "backend"
+    backends = Manager([{"namespace": ".*", "backend": "file",
+                         "config": {"root": str(backend_root)}}])
+    asyncio.run(backends.get_client("ns").upload("ns", d.hex, blob))
+    hasher = kt.TorchPieceHasher(device="cpu")
+    card_calls = []
+    orig = hasher.hash_pieces
+    monkeypatch.setattr(hasher, "hash_pieces",
+                        lambda data, plen: card_calls.append(len(data)) or orig(data, plen))
+    calls = []
+    real = hashlib.sha256
+
+    def counted(*a, **kw):
+        f = sys._getframe(1)
+        calls.append((f.f_globals.get("__name__"), f.f_code.co_name))
+        return real(*a, **kw)
+
+    store = kt.CAStore(str(tmp_path / "o"))
+    gen = kt.Generator(store, hasher=hasher, piece_lengths=kt.PieceLengthConfig(((0, 2048),)))
+    server = OriginServer(store, gen, Refresher(store, backends, gen))
+
+    async def main():
+        runner, port = await http_lite.serve(server.make_app(), "127.0.0.1", 0)
+        try:
+            async with http_lite.ClientSession() as s:
+                monkeypatch.setattr(hashlib, "sha256", counted)
+                async with s.get(f"http://127.0.0.1:{port}/namespace/ns/blobs/{d.hex}/metainfo") as r:
+                    body = await r.read()
+                    assert r.status == 200, body
+        finally:
+            monkeypatch.setattr(hashlib, "sha256", real)
+            await runner.cleanup()
+            await backends.close()
+
+    asyncio.run(main())
+    assert store.read_cache_file(d) == blob
+    assert card_calls == [len(blob)]
+    assert gen.get_cached(d).piece_hashes == kt.CPUPieceHasher().hash_pieces(blob, 2048).tobytes()
+    piece_sites = {"kraken_tpu_torch.core.hasher", "kraken_tpu_torch.core.ingest"}
+    assert not [c for c in calls if c[0] in piece_sites or c[1] == "verify_piece"], calls

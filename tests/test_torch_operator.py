@@ -256,9 +256,23 @@ async def _drive_mux(pkg: str, component: str, tmp_path, monkeypatch) -> dict:
     return out
 
 
+@pytest.fixture
+def fresh_slo(process_globals, jax_globals):
+    """Both packages' SLO managers with no recorded events, no alert state
+    and no last evaluation for the test; the two fixtures it takes put back
+    what was there. Another test in the same worker (the reference's
+    cleanup-wiring herd, say) leaves failed announces in one package's
+    recorders; an alert firing there gives its ``since_ts`` a float where
+    the other package's stays null, and the shapes of ``/debug/slo`` part."""
+    for slo in (SLO, JAX_SLO):
+        with slo._lock:
+            slo._recorders, slo._alerts, slo._last_eval = {}, {}, {}
+    yield
+
+
 @pytest.mark.parametrize("component", COMPONENTS)
-def test_the_mux_answers_as_the_references(tmp_path, monkeypatch, process_globals, jax_globals,
-                                           failpoints_gate, component):
+def test_the_mux_answers_as_the_references(tmp_path, monkeypatch, fresh_slo, failpoints_gate,
+                                           component):
     monkeypatch.delenv("KRAKEN_FAILPOINTS_ALLOW", raising=False)
     got = {pkg: run(_drive_mux(pkg, component, tmp_path, monkeypatch)) for pkg in (JAX, PORT)}
     ref, port = got[JAX], got[PORT]
