@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card. It builds
 the port's kernels from ``kraken_tpu_torch/csrc/`` (one ``nvcc`` per
 source, all at once, a few seconds) and the host packer
-(``kraken_tpu_torch/native/hostpack.c``), then runs nineteen phases, each
+(``kraken_tpu_torch/native/hostpack.c``), then runs twenty phases, each
 printing JSON lines; any failure raises and the script exits non-zero
 without a result:
 
@@ -328,6 +328,25 @@ without a result:
    alive after SIGHUP, 0 on SIGTERM. In (b) and (c) every origin piece
    and every agent verify on the card, ``sha256_uniform`` launched at the
    origin and ``sha256_ragged`` at the agent.
+20. ``parallel`` -- the sharded hash plane on the card's default mesh
+   (every visible card; one here, so no speed-up across cards is
+   claimed). (a) ``ShardedPieceHasher()`` and ``TorchPieceHasher()`` on
+   one 1 GiB + 12,345 B blob of 4 MiB pieces, in turns: both equal to
+   hashlib, the sharded call launching ``sha256_uniform`` once a mesh
+   device and ``sha256_ragged`` once for the tail; each call's wall.
+   (b) ``IngestPipeline(get_hasher("cuda-sharded"), IngestConfig())`` on
+   the blob's first 1 GiB: 16 windows of 64 MiB, each staged on the mesh
+   and hashed, equal to hashlib; the ``transfer`` and ``hash`` walls.
+   (c) Four processes of ``python -m kraken_tpu_torch.parallel.multihost
+   p 4 <port> --platform cuda``, each hashing its own batch of 4 MiB
+   pieces on the card and gathering the digests over gloo: every rank's
+   global matrix equal to hashlib over all four batches, every rank 0;
+   each rank's launches and the gather's wall. (d) A ``--hasher
+   cuda-sharded`` origin of the CLI: READY, 1 GiB uploaded, ``GET
+   /metainfo`` equal to hashlib's, its 16 windows staged and hashed on the
+   card (``kernel_launches_total``, ``ingest_windows_total`` and
+   ``hasher_pieces_total{hasher="cuda-sharded"}`` from its ``/metrics``),
+   none by hashlib, SIGTERM 0.
 
 Phases 8 and 10 read the SM clock right after their timed launches.
 
@@ -335,7 +354,8 @@ The launch counters are zeroed just before each main path (origin +
 agent; each ingest run; the dedup indexing; each decomposition; each
 swarm leg and the tracker phase's pulls, and each seeder's metainfo; each
 leg of phase 13; phase 14's to 19's children, through their
-``/metrics``) and
+``/metrics``; each leg of phase 20, its ranks and its origin by their own
+counts) and
 read just after it: every
 wrapper must have launched on its path. Then the card's name and power limit, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -4332,6 +4352,219 @@ def backends_phase(root: str, card_name_power: str) -> dict:
         fakes.close()
 
 
+# -- phase 20, the parallel hash plane ----------------------------------------
+# The sharded hasher on the card's default mesh, the origin's pipeline on it
+# through the staged-window protocol, four processes federating their digests
+# over gloo, and a ``--hasher cuda-sharded`` origin of the CLI. The machine
+# has one card, so the mesh has one device: the phase shows the path runs and
+# agrees, not a speed-up across cards.
+
+PARALLEL_NS = "library/parallel"
+PARALLEL_BLOB = GiB
+PARALLEL_RANKS = 4
+PARALLEL_TIMEOUT_S = 180.0
+
+
+def parallel_phase(root: str, card_name_power: str) -> dict:
+    """Phase 20: (a) ``ShardedPieceHasher()`` beside ``TorchPieceHasher``
+    on 1 GiB + 12,345 B, (b) ``IngestPipeline(get_hasher("cuda-sharded"),
+    IngestConfig())`` on 1 GiB, (c) four ranks of ``python -m
+    kraken_tpu_torch.parallel.multihost`` on the card, (d) a ``--hasher
+    cuda-sharded`` origin of the CLI taking 1 GiB. Returns the launches
+    and walls that the kernels line carries."""
+    from kraken_tpu_torch import (
+        Digest, IngestConfig, IngestPipeline, MetaInfo, TorchPieceHasher, get_hasher,
+    )
+    from kraken_tpu_torch.configutil import load_config
+    from kraken_tpu_torch.ops import sha256_cuda
+    from kraken_tpu_torch.origin.client import BlobClient
+    from kraken_tpu_torch.parallel import ShardedPieceHasher
+    from kraken_tpu_torch.parallel.multihost import SELFTEST_PIECE, _batch_of
+    from kraken_tpu_torch.utils.deadline import RPCConfig
+    from kraken_tpu_torch.utils.httputil import HTTPClient
+
+    rng = np.random.default_rng(SEED + 200)
+    blob = rng.bytes(PARALLEL_BLOB + TAIL)
+    want = hashlib_pieces(blob, PIECE)
+    n_full = PARALLEL_BLOB // PIECE
+
+    # (a) The sharded hasher and the single-device one on the same bytes,
+    # in turns (sharded, single, single, sharded); the launches are the
+    # first sharded call's.
+    sharded, single = ShardedPieceHasher(), TorchPieceHasher()
+    mesh = sharded.mesh
+    walls: dict[str, list] = {"cuda-sharded": [], "cuda": []}
+    launches_a = None
+    for h in (sharded, single, single, sharded):
+        sha256_cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = h.hash_pieces(blob, PIECE)
+        walls[h.name].append(time.perf_counter() - t0)
+        if got.tobytes() != want:
+            raise AssertionError(f"parallel (a): {h.name} != hashlib")
+        if launches_a is None:
+            launches_a = dict(sha256_cuda.LAUNCHES)
+    if launches_a != {"sha256_uniform": mesh.size, "sha256_ragged": 1,
+                      "pack_tiles_device": 0, "sha256_packed_tiles": 0}:
+        raise AssertionError(f"parallel (a): launches {launches_a} on a mesh of {mesh.size}")
+    emit({"phase": "parallel", "leg": "a_hasher", "blob_bytes": len(blob),
+          "piece_length": PIECE, "mesh_size": mesh.size,
+          "mesh_devices": [str(d) for d in mesh.devices], "launches": launches_a,
+          "wall_s": walls, "order": ["cuda-sharded", "cuda", "cuda", "cuda-sharded"],
+          "checks": ["ShardedPieceHasher == hashlib == TorchPieceHasher, every piece",
+                     "one sha256_uniform a mesh device, one sha256_ragged for the tail"],
+          "card": card_name_power})
+
+    # (b) The origin's pipeline on the sharded hasher: 16 windows of 64 MiB,
+    # each staged on the mesh, then hashed.
+    pipe = IngestPipeline(get_hasher("cuda-sharded"), IngestConfig())
+    view = memoryview(blob)[:PARALLEL_BLOB]
+    sha256_cuda.reset_launches()
+    t0 = time.perf_counter()
+    ses = pipe.session(PIECE)
+    off = 0
+    while off < len(view):
+        buf = ses.begin_window()
+        n = min(len(buf), len(view) - off)
+        buf[:n] = view[off : off + n]
+        off += n
+        ses.submit(n)
+    got = ses.finish()
+    ingest_s = time.perf_counter() - t0
+    launches_b = dict(sha256_cuda.LAUNCHES)
+    windows = -(-PARALLEL_BLOB // IngestConfig().window_bytes)
+    if got.tobytes() != want[: n_full * 32] or ses._fell_back:
+        raise AssertionError("parallel (b): the pipeline's digests != hashlib")
+    if (launches_b["sha256_uniform"] != windows * mesh.size or launches_b["sha256_ragged"]
+            or not ses.stage_seconds["transfer"] > 0 or not ses.stage_seconds["hash"] > 0):
+        raise AssertionError(f"parallel (b): not the staged path: {launches_b} "
+                             f"{ses.stage_seconds}")
+    emit({"phase": "parallel", "leg": "b_ingest", "blob_bytes": PARALLEL_BLOB,
+          "window_bytes": ses.window_bytes, "windows": ses.windows, "launches": launches_b,
+          "stage_seconds": ses.stage_seconds, "wall_s": ingest_s,
+          "gbps": PARALLEL_BLOB / ingest_s / 1e9, "overlap_ratio": ses.overlap_ratio(),
+          "checks": ["digests == hashlib", "every window staged (transfer > 0) then hashed"],
+          "card": card_name_power})
+    del blob, view, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Four ranks on the card, each hashing its own batch of 4 MiB pieces
+    # and gathering the digests over gloo.
+    plen = SELFTEST_PIECE["cuda"]
+    want_c = hashlib.sha256(b"".join(
+        hashlib.sha256(row.tobytes()).digest()
+        for p in range(PARALLEL_RANKS) for row in _batch_of(p, plen))).hexdigest()
+    (port,) = free_ports(1)
+    t0 = time.perf_counter()
+    ranks = [subprocess.Popen(
+        [sys.executable, "-m", "kraken_tpu_torch.parallel.multihost", str(p),
+         str(PARALLEL_RANKS), str(port), "--platform", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO))) for p in range(PARALLEL_RANKS)]
+    stats = []
+    try:
+        for p, proc in enumerate(ranks):
+            out, err = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+            line = next((ln for ln in out.splitlines() if ln.startswith("MULTIHOST-OK")), "")
+            digests = sum(3 + q for q in range(PARALLEL_RANKS))
+            if proc.returncode != 0 or not line.startswith(
+                    f"MULTIHOST-OK proc={p} digests={digests} "):
+                raise AssertionError(f"parallel (c): rank {p} exit {proc.returncode}:\n"
+                                     f"{out[-2000:]}\n{err[-3000:]}")
+            stats.append(json.loads(line.split(" ", 3)[3]))
+    finally:
+        for proc in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks_s = time.perf_counter() - t0
+    for p, s in enumerate(stats):
+        if s["global_sha256"] != want_c or s["platform"] != "cuda":
+            raise AssertionError(f"parallel (c): rank {p}'s global matrix != hashlib: {s}")
+        if s["launches"]["sha256_uniform"] < 1:
+            raise AssertionError(f"parallel (c): rank {p} launched no kernel: {s}")
+    emit({"phase": "parallel", "leg": "c_multihost", "ranks": PARALLEL_RANKS,
+          "piece_length": plen, "rows_per_rank": [3 + p for p in range(PARALLEL_RANKS)],
+          "launches": [s["launches"] for s in stats],
+          "hash_and_gather_s": [s["hash_and_gather_s"] for s in stats],
+          "gather_s": [s["gather_s"] for s in stats], "spawn_to_exit_s": ranks_s,
+          "checks": ["every rank's global [N, 32] matrix == hashlib over all four batches",
+                     "every rank exit 0, each launching on the card"],
+          "card": card_name_power})
+
+    # (d) A --hasher cuda-sharded origin of the CLI takes 1 GiB.
+    origin = HerdChild(root, "origin", ["origin", "--config", herd_config(root, "origin"),
+                                        "--hasher", "cuda-sharded"])
+    try:
+        blob = np.random.default_rng(SEED + 201).bytes(PARALLEL_BLOB)
+        d = Digest.from_bytes(blob)
+        pieces = hashlib_pieces(blob, PIECE)
+        o0 = origin.metrics()
+
+        async def upload() -> tuple[float, bytes]:
+            client = BlobClient(origin.addr, HTTPClient(retries=0))
+            http = HTTPClient(retries=0, timeout_seconds=PARALLEL_TIMEOUT_S)
+            try:
+                t0 = time.perf_counter()
+                await asyncio.wait_for(
+                    client.upload(PARALLEL_NS, d, blob, chunk_size=ORIGIN_CHUNK),
+                    PARALLEL_TIMEOUT_S)
+                secs = time.perf_counter() - t0
+                raw = await http.get(f"http://{origin.addr}/namespace/"
+                                     f"{quote(PARALLEL_NS, safe='')}/blobs/{d.hex}/metainfo")
+            finally:
+                await client.close()
+                await http.close()
+            return secs, raw
+
+        upload_s, raw = asyncio.run(upload())
+        if raw != MetaInfo(d, len(blob), PIECE, pieces).serialize():
+            raise AssertionError("parallel (d): GET /metainfo != MetaInfo over hashlib")
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
+        o1 = origin.metrics()
+        while metric(o1, "origin_dedup_indexed_blobs") < 1:
+            if time.perf_counter() > deadline:
+                raise AssertionError("parallel (d): the origin's dedup pass did not finish")
+            time.sleep(0.5)
+            o1 = origin.metrics()
+        got_d = {
+            "launches": {k: delta(o0, o1, "kernel_launches_total", kernel=k)
+                         for k in ("sha256_uniform", "sha256_ragged", "gear_candidates")},
+            "sharded_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cuda-sharded"),
+            "cpu_pieces": delta(o0, o1, "hasher_pieces_total", hasher="cpu"),
+            "ingest_windows": delta(o0, o1, "ingest_windows_total", hasher="cuda-sharded"),
+        }
+        windows = -(-PARALLEL_BLOB // HERD_WINDOW)
+        if (got_d["sharded_pieces"] != n_full or got_d["cpu_pieces"]
+                or got_d["ingest_windows"] != windows
+                or got_d["launches"]["sha256_uniform"] < windows * mesh.size):
+            raise AssertionError(f"parallel (d): the origin's windows were not on the card: {got_d}")
+        limit = RPCConfig.from_dict(
+            load_config(str(REPO / "config" / "origin" / "base.yaml")).get("rpc")
+        ).drain_timeout_seconds
+        t0 = time.perf_counter()
+        rc = origin.stop()
+        drain_s = time.perf_counter() - t0
+        if rc != 0 or drain_s > limit:
+            raise AssertionError(f"parallel (d): SIGTERM gave exit {rc} after {drain_s:.1f} s:\n"
+                                 + origin.log()[-3000:])
+    finally:
+        origin.stop(kill=True)
+    emit({"phase": "parallel", "leg": "d_cli_origin", "ready_s": origin.ready_s,
+          "blob_bytes": PARALLEL_BLOB, "upload_to_201_s": upload_s,
+          "gbps": PARALLEL_BLOB / upload_s / 1e9, **got_d, "drain_to_exit_s": drain_s,
+          "checks": ["READY with --hasher cuda-sharded",
+                     "GET /metainfo == MetaInfo over hashlib",
+                     f"{n_full} pieces hashed in {windows} staged windows on the card, "
+                     "none by hashlib", "SIGTERM: exit 0"],
+          "card": card_name_power})
+    return {"a": launches_a, "b": launches_b,
+            "c": [s["launches"] for s in stats], "d": got_d["launches"],
+            "walls": walls, "ingest_s": ingest_s, "stage_seconds": ses.stage_seconds,
+            "gather_s": [s["gather_s"] for s in stats]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5211,6 +5444,23 @@ def main() -> int:
     if any(own.read().values()):
         raise AssertionError(f"backends: this process launched kernels: {own.read()}")
 
+    # -- 20. parallel: the sharded hasher, staged windows, ranks over gloo --
+    gc.collect()
+    torch.cuda.empty_cache()
+    work.mkdir(exist_ok=True)
+    parallel_start = time.perf_counter()
+    try:
+        par = parallel_phase(tempfile.mkdtemp(dir=work), card.name_power)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    parallel_secs = time.perf_counter() - parallel_start
+
+    def parallel_launches(name: str) -> dict:
+        """Phase 20's launches of one wrapper: (a) and (b) in this process,
+        (c) by rank, (d) at the CLI origin."""
+        return {"a_hasher": par["a"][name], "b_ingest": par["b"][name],
+                "c_ranks": [r[name] for r in par["c"]], "d_cli_origin": par["d"][name]}
+
     def backends_launches(name: str) -> dict:
         """Phase 19's launches of one wrapper, by process ((b) and (c))."""
         return {proc: bk["launches"][proc].get(name, 0.0) for proc in ("origin", "agent")}
@@ -5258,6 +5508,7 @@ def main() -> int:
          "operator_launches": operator_launches("sha256_uniform"),
          "shards_launches": shards_launches("sha256_uniform"),
          "backends_launches": backends_launches("sha256_uniform"),
+         "parallel_launches": parallel_launches("sha256_uniform"),
          "herd_launches": {"origin": hc["origin_launches"]["sha256_uniform"],
                            "agent": hc["agent_launches"]["sha256_uniform"]},
          "herd_origin_ingest_windows": hc["origin_ingest_windows"],
@@ -5276,6 +5527,7 @@ def main() -> int:
          "operator_launches": operator_launches("sha256_ragged"),
          "shards_launches": shards_launches("sha256_ragged"),
          "backends_launches": backends_launches("sha256_ragged"),
+         "parallel_launches": parallel_launches("sha256_ragged"),
          "operator_pull_busy_share": op["busy_share"],
          "herd_launches": {"origin": hc["origin_launches"]["sha256_ragged"],
                            "agent": hc["agent_launches"]["sha256_ragged"]},
@@ -5348,6 +5600,7 @@ def main() -> int:
         "herd_seconds": herd_secs, "front_door_seconds": front_secs,
         "delta_seconds": delta_secs, "operator_seconds": operator_secs,
         "shards_seconds": shards_secs, "backends_seconds": backends_secs,
+        "parallel_seconds": parallel_secs,
         "int_ops_per_s": card.int_ops_per_s, "sm_clock_hz": card.sm_clock_hz})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

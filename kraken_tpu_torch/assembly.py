@@ -7,11 +7,12 @@ one node per process; tests run several per process. Config keys follow the comp
 (``config/``). Where the port's nodes differ from the reference's:
 
 - ``hasher`` defaults to ``cuda`` (the reference's default is ``cpu``);
-  ``tpu`` and ``tpu-sharded`` raise ``ValueError`` -- the port's hashers
-  are ``cpu`` and ``cuda``, and ``cuda-sharded`` is ROADMAP A4. A
-  ``cuda`` node loads the kernel library at start, so a card that cannot
+  ``tpu`` and ``tpu-sharded`` raise ``ValueError`` naming the port's
+  hashers, ``cpu``, ``cuda`` and ``cuda-sharded`` (every card of the
+  host, ``parallel.hashplane``). A card node loads the kernel library at
+  start and makes a context on each of its cards, so a card that cannot
   run it fails the boot.
-- A ``cuda`` origin gets an ``IngestPipeline`` from its ``ingest:``
+- A card origin (``cuda``, ``cuda-sharded``) gets an ``IngestPipeline`` from its ``ingest:``
   section, and from ``IngestConfig()`` when there is none: its pieces
   are hashed on the card while the upload streams in. The origin's
   ``OriginServer`` reads ``resume`` and ``serve_while_ingest`` from that
@@ -109,7 +110,7 @@ from kraken_tpu_torch.utils.trace import TRACER, TraceConfig
 
 _log = logging.getLogger("kraken.assembly")
 
-HASHERS = ("cpu", "cuda")
+HASHERS = ("cpu", "cuda", "cuda-sharded")
 
 _ring_refresh_failures = FailureMeter(
     "ring_refresh_failures_total",
@@ -124,32 +125,36 @@ _health_probe_failures = FailureMeter(
 
 
 def check_hasher(name: str) -> str:
-    """A node's ``hasher:``: ``cpu`` or ``cuda``, else ``ValueError``."""
+    """A node's ``hasher:``: one of :data:`HASHERS`, else ``ValueError``."""
     if name in HASHERS:
         return name
     if name in ("tpu", "tpu-sharded"):
         raise ValueError(
             f"hasher {name!r} is the JAX package's: the port's hashers are"
-            " 'cpu' (hashlib) and 'cuda' (the card); 'cuda-sharded', the"
-            " counterpart of 'tpu-sharded', is ROADMAP A4"
+            " 'cpu' (hashlib), 'cuda' (the card) and 'cuda-sharded' (every"
+            " card of the host, the counterpart of 'tpu-sharded')"
         )
     raise ValueError(f"unknown hasher {name!r}: the port's hashers are {HASHERS}")
 
 
 def _load_kernels(hasher) -> None:
-    """A ``cuda`` node brings up its CUDA context and loads the kernel
-    library before it listens: a node that cannot reach the card fails
-    its boot (no CPU fallback)."""
-    device = getattr(hasher, "device", None)
-    if device is None or device.type != "cuda":
+    """A card node loads the kernel library and brings up a CUDA context on
+    each of its hasher's cards (every device of a ``cuda-sharded`` mesh)
+    before it listens: a node that cannot reach a card fails its boot (no
+    CPU fallback)."""
+    mesh = getattr(hasher, "mesh", None)
+    devices = mesh.devices if mesh is not None else (getattr(hasher, "device", None),)
+    devices = [d for d in devices if d is not None and d.type == "cuda"]
+    if not devices:
         return
     import torch
 
     from kraken_tpu_torch.ops import cuda_lib
 
     cuda_lib.load()
-    torch.zeros(1, device=device)
-    torch.cuda.synchronize(device)
+    for device in devices:
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize(device)
 
 
 async def _cleanup_loop(manager: CleanupManager) -> None:
@@ -697,10 +702,10 @@ class OriginNode:
         self.hash_workers = hash_workers
         hasher_obj = get_hasher(hasher, workers=hash_workers)
         # Pipelined ingest plane (core/ingest.py): the upload spool ->
-        # piece-hash path as an overlapped window stream. A cuda origin
+        # piece-hash path as an overlapped window stream. A card origin
         # always has one (its pieces are hashed on the card at stream
         # time); a cpu origin has one when its config has `ingest:`.
-        if ingest is None and self.hasher_name == "cuda":
+        if ingest is None and self.hasher_name != "cpu":
             ingest = IngestConfig()
         self.ingest_config = None if ingest is None else _config(IngestConfig, ingest)
         self.ingest_pipeline = (
@@ -888,7 +893,7 @@ class OriginNode:
             dedup=self.dedup,
             cleanup=self.cleanup,
             # cpu origins piece-hash with hashlib while the bytes stream
-            # in; cuda origins hash on the card (their pipeline's windows
+            # in; card origins hash on the card (their pipeline's windows
             # at stream time).
             stream_piece_hash=self.hasher_name == "cpu",
             rpc=self.rpc,

@@ -28,8 +28,9 @@ endpoint adds its ``registry_addr``). SIGTERM drains and then stops,
 SIGINT stops, SIGHUP re-reads ``--config`` and applies what reloads live
 (a reload that raises keeps the current config).
 
-``--hasher`` takes ``cpu`` and ``cuda`` (a ``cuda`` node without a card
-exits non-zero before its READY line); the shipped files' ``hasher: tpu``
+``--hasher`` takes ``cpu``, ``cuda`` and ``cuda-sharded`` (every card of
+the host; a card node without a card exits non-zero before its READY
+line); the shipped files' ``hasher: tpu``
 is refused unless a flag overrides it. The build-index and the proxy hash
 nothing on a card, in the reference either. A top-level key that no node
 of the component reads is logged, never dropped silently.
@@ -562,7 +563,7 @@ def main(argv: list[str] | None = None) -> None:
     p_origin.add_argument("--tracker", default=None,
                           help="tracker addr, or a comma-separated fleet")
     p_origin.add_argument("--p2p-port", type=int, default=None)
-    p_origin.add_argument("--hasher", default=None, choices=["cpu", "cuda"])
+    p_origin.add_argument("--hasher", default=None, choices=["cpu", "cuda", "cuda-sharded"])
     p_origin.add_argument("--hash-workers", type=int, default=None,
                           help="host piece-hash pool size (cpu hasher);"
                                " 0 = strictly serial")
@@ -591,7 +592,7 @@ def main(argv: list[str] | None = None) -> None:
     p_agent.add_argument("--tracker", default=None,
                          help="tracker addr, or a comma-separated fleet")
     p_agent.add_argument("--p2p-port", type=int, default=None)
-    p_agent.add_argument("--hasher", default=None, choices=["cpu", "cuda"])
+    p_agent.add_argument("--hasher", default=None, choices=["cpu", "cuda", "cuda-sharded"])
     p_agent.add_argument("--hash-workers", type=int, default=None,
                          help="host piece-hash pool size for the verify"
                               " plane (cpu hasher); 0 = strictly serial")

@@ -7,7 +7,9 @@ Both hot loops of the system route through this interface:
 - agent-side piece verification (``p2p/storage``): hash every received piece.
 
 Implementations register by name: ``cpu`` is the hashlib oracle below,
-``cuda`` the hand-written SHA-256 kernel (``kraken_tpu_torch.ops.sha256``).
+``cuda`` the hand-written SHA-256 kernel (``kraken_tpu_torch.ops.sha256``),
+``cuda-sharded`` that kernel on every card of a mesh
+(``kraken_tpu_torch.parallel.hashplane``).
 The interface is batch-shaped -- ``hash_pieces`` takes a whole blob window
 and returns an ``[N, 32]`` digest matrix -- because the device amortizes a
 launch over many pieces.
@@ -210,7 +212,7 @@ def register_hasher(name: str, factory: Callable[[], PieceHasher]) -> None:
 
 
 def get_hasher(name: str = "cpu", workers: int = 0) -> PieceHasher:
-    """Resolve a hasher by registry name (``cpu``, ``cuda``).
+    """Resolve a hasher by registry name (``cpu``, ``cuda``, ``cuda-sharded``).
 
     Instances are cached, so the origin and agent of one process share one
     instance. ``workers`` applies only to the cpu hasher: ``workers >= 1``
@@ -227,6 +229,8 @@ def get_hasher(name: str = "cpu", workers: int = 0) -> PieceHasher:
             # Importing the plane registers its hasher; deferred so that
             # pure-host components never pay the torch import.
             import kraken_tpu_torch.ops.sha256  # noqa: F401
+        elif name not in _REGISTRY and name == "cuda-sharded":
+            import kraken_tpu_torch.parallel.hashplane  # noqa: F401
         try:
             factory = _REGISTRY[name]
         except KeyError:

@@ -21,7 +21,9 @@ Stage semantics per window:
   over ``pack_workers`` HashPool threads; ``device`` relays out on the
   card (``ops.sha256_cuda.pack_tiles_device``), billed the kernel's time
   from CUDA events.
-- **transfer**: the host-to-device copy of the window.
+- **transfer**: the host-to-device copy of the window (for a staged
+  window, its copy into pinned memory and the copies' enqueue: the
+  readback in **hash** waits for the copies themselves).
 - **hash**: the kernel launch + digest readback (the readback is the
   window's sync point: every copy out of the staging lease has finished
   before the lease returns to the pool), or the hashlib pass after an
@@ -30,10 +32,14 @@ Stage semantics per window:
   fails the window and the session; it never reroutes to the CPU.
 
 The packed path (``native``/``device``) needs a window of whole 1024-piece
-tiles with ``piece_length % 64 == 0`` and the ``cuda`` hasher
-(``ops.sha256.TorchPieceHasher``, on the card or, for tests, on the CPU
-through the kernels' plain versions); other windows take the hasher's own
-``hash_pieces``, bit-identically.
+tiles with ``piece_length % 64 == 0`` and a card hasher, ``cuda``
+(``ops.sha256.TorchPieceHasher``) or ``cuda-sharded``
+(``parallel.hashplane.ShardedPieceHasher``), whose ``device`` it runs on:
+the card or, for tests, the CPU through the kernels' plain versions. A
+uniform window of a hasher with the staged-window protocol
+(``stage_window`` / ``hash_staged_window``, the sharded hasher's) is
+placed on its mesh and hashed there, billed to transfer and hash apart;
+other windows take the hasher's own ``hash_pieces``, bit-identically.
 
 Every window observes ``ingest_stage_seconds{stage}``. Digests are
 bit-identical to the serial oracle by construction: pipelining reorders
@@ -116,7 +122,7 @@ class IngestConfig:
     #           needs spare feeder cores.
     # device -- natural bytes to the card, relayout kernel, packed kernel.
     # Modes other than host need tile-quantum windows (1024 pieces) and
-    # the cuda hasher; other windows take host-mode handling,
+    # a card hasher (cuda, cuda-sharded); other windows take host-mode handling,
     # bit-identically.
     pack_mode: str = "host"
     # Resumable upload sessions: journal per-upload durable progress to an
@@ -436,23 +442,36 @@ class IngestSession:
 
     def _hasher_window(self, view, plen: int) -> np.ndarray:
         """The configured hasher's path for one window: the packed kernels,
-        or the hasher's own batch call."""
+        the hasher's staged windows, or its own batch call."""
         m, ragged = divmod(len(view), plen)
-        if (
-            self._cfg.pack_mode != "host"
-            and m > 0 and ragged == 0
-            and m % N_TILE == 0
-            and plen % 64 == 0
-            and self.pipeline.hasher.name == "cuda"
-        ):
+        hasher = self.pipeline.hasher
+        if m > 0 and ragged == 0 and plen % 64 == 0:
             arr = np.frombuffer(view, dtype=np.uint8).reshape(m, plen)
-            return self._packed_window(arr, plen)
-        # Host mode, a ragged or short final window, or a hasher without
-        # the packed kernels: one batch call, billed to hash.
+            if (
+                self._cfg.pack_mode != "host"
+                and m % N_TILE == 0
+                and hasher.name.startswith("cuda")
+            ):
+                return self._packed_window(arr, plen)
+            if hasattr(hasher, "stage_window"):
+                if failpoints.fire("ingest.window.transfer"):
+                    raise failpoints.FailpointError("ingest.window.transfer")
+                t0 = time.perf_counter()
+                handle = hasher.stage_window(arr, plen)
+                self._bill("transfer", time.perf_counter() - t0)
+                if failpoints.fire("ingest.window.hash"):
+                    raise failpoints.FailpointError("ingest.window.hash")
+                t0 = time.perf_counter()
+                out = hasher.hash_staged_window(handle)
+                self._bill("hash", time.perf_counter() - t0)
+                return out
+        # A cpu hasher, a ragged or short final window, a hasher without
+        # the packed kernels or the staged protocol: one batch call,
+        # billed to hash.
         if failpoints.fire("ingest.window.hash"):
             raise failpoints.FailpointError("ingest.window.hash")
         t0 = time.perf_counter()
-        out = self.pipeline.hasher.hash_pieces(view, plen)
+        out = hasher.hash_pieces(view, plen)
         self._bill("hash", time.perf_counter() - t0)
         return out
 

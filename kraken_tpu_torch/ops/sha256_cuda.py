@@ -24,8 +24,8 @@ What bounds each kernel, and what its design does about it, is noted at
 the top of its source.
 
 A tensor on the CPU goes through the plain PyTorch version
-(:mod:`kraken_tpu_torch.ops.sha256_ref`); a CUDA tensor
-launches the kernel or raises. The kernels live in the port's one kernel
+(:mod:`kraken_tpu_torch.ops.sha256_ref`; the hashes one call at a
+time); a CUDA tensor launches the kernel or raises. The kernels live in the port's one kernel
 library, built at first use (:mod:`kraken_tpu_torch.ops.cuda_lib`).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
@@ -54,6 +54,12 @@ LAUNCHES = {
     "pack_tiles_device": 0, "sha256_packed_tiles": 0,
 }
 _lock = threading.Lock()
+# The plain SHA-256 versions run thousands of small eager ops a block,
+# each of which drops the GIL and takes it back. Callers in several
+# threads at once (an agent's concurrent verify flushes) convoy on it:
+# each take waits out the switch interval, and a 4 KiB row's 0.4 s
+# stretched to 16 s on an 8-core CPU. So their CPU calls run one at a time.
+_plain_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -115,7 +121,8 @@ def sha256_ragged(
     ):
         raise ValueError("a row lies outside flat")
     if flat.device.type == "cpu":
-        return sha256_rows_ref(flat, offsets, lengths)
+        with _plain_lock:
+            return sha256_rows_ref(flat, offsets, lengths)
     return _launch("sha256_ragged", flat, offsets, lengths)
 
 
@@ -126,7 +133,8 @@ def sha256_uniform(rows: torch.Tensor) -> torch.Tensor:
     if rows.dim() != 2 or rows.dtype != torch.uint8 or not rows.is_contiguous():
         raise ValueError("rows must be a contiguous 2-D uint8 tensor")
     if rows.device.type == "cpu":
-        return sha256_uniform_ref(rows)
+        with _plain_lock:
+            return sha256_uniform_ref(rows)
     return _launch("sha256_uniform", *uniform_rows(rows))
 
 
@@ -175,7 +183,8 @@ def sha256_packed_tiles(packed: torch.Tensor, unpadded_blocks: int) -> torch.Ten
     if not 1 <= unpadded_blocks <= nbp:
         raise ValueError(f"unpadded_blocks {unpadded_blocks} outside 1..{nbp}")
     if packed.device.type == "cpu":
-        return sha256_packed_ref(packed, unpadded_blocks)
+        with _plain_lock:
+            return sha256_packed_ref(packed, unpadded_blocks)
     n = t * N_TILE
     out = torch.empty((n, 8), dtype=torch.int32, device=packed.device)
     if n:

@@ -407,7 +407,7 @@ def test_delta_and_the_chunk_tier_turn_on_at_start_and_on_and_off_by_sighup(
 def test_the_jax_hashers_are_refused_naming_the_ports(tmp_path, name):
     with pytest.raises(ValueError, match="'cpu'.*'cuda'" if name != "gpu" else "cpu"):
         _agent(tmp_path, hasher=name)
-    with pytest.raises(ValueError, match="A4" if name != "gpu" else "hasher"):
+    with pytest.raises(ValueError, match="cuda-sharded" if name != "gpu" else "hasher"):
         _origin(tmp_path, hasher=name)
 
 
@@ -422,6 +422,44 @@ def test_the_nodes_default_to_the_card(monkeypatch, tmp_path):
                  lambda: assembly.OriginNode(str(tmp_path / "o"))):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_a_cuda_sharded_node_takes_every_card_of_its_mesh(monkeypatch, tmp_path):
+    """``cuda-sharded`` is a node hasher: without a card the nodes raise
+    naming the CPU mesh; an origin on it gets IngestConfig()'s pipeline,
+    as a cuda origin does; and the boot makes a context on every device of
+    the mesh."""
+    import torch
+
+    from kraken_tpu_torch.core import hasher as hasher_mod
+    from kraken_tpu_torch.core.ingest import IngestConfig
+    from kraken_tpu_torch.ops import cuda_lib
+    from kraken_tpu_torch.parallel import PieceMesh, ShardedPieceHasher, piece_mesh
+
+    assert assembly.check_hasher("cuda-sharded") == "cuda-sharded"
+    monkeypatch.setattr(hasher_mod, "_INSTANCES", {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: _agent(tmp_path, hasher="cuda-sharded"),
+                 lambda: _origin(tmp_path, hasher="cuda-sharded")):
+        with pytest.raises(RuntimeError, match="platform='cpu'"):
+            make()
+    mesh = piece_mesh(2, platform="cpu")
+    monkeypatch.setitem(hasher_mod._REGISTRY, "cuda-sharded", lambda: ShardedPieceHasher(mesh))
+    node = _origin(tmp_path, hasher="cuda-sharded")
+    assert node.ingest_config == IngestConfig()
+    assert node.ingest_pipeline.hasher is node.generator.hasher
+    assert node.generator.hasher.name == "cuda-sharded"
+
+    touched = []
+    monkeypatch.setattr(cuda_lib, "load", lambda: touched.append("load"))
+    monkeypatch.setattr(torch, "zeros", lambda *a, device: touched.append(device))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device: None)
+    cards = PieceMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+    assembly._load_kernels(type("Sharded", (), {"mesh": cards, "device": cards.devices[0]})())
+    assert touched == ["load", *cards.devices]
+    touched.clear()
+    assembly._load_kernels(node.generator.hasher)  # CPU shards: nothing to bring up
+    assert touched == []
 
 
 def test_the_observe_only_sentinel_and_the_prober_are_not_started(tmp_path, process_globals):

@@ -27,6 +27,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG = REPO / "config"
@@ -229,8 +230,26 @@ def test_a_node_that_cannot_have_its_hasher_exits_before_ready(tmp_path):
         )
         err.write_text(proc.stderr)
         assert proc.returncode != 0 and "READY" not in proc.stdout, name
-        assert ("'cuda'" in proc.stderr and "A4" in proc.stderr) if name == "tpu" \
+        assert ("'cuda'" in proc.stderr and "cuda-sharded" in proc.stderr) if name == "tpu" \
             else "CUDA" in proc.stderr
+
+
+@pytest.mark.parametrize("component", ["origin", "agent"])
+def test_a_cuda_sharded_node_without_a_card_exits_before_ready(tmp_path, component):
+    """``--hasher cuda-sharded`` asks for every card of the host; with none
+    visible the node fails its boot, naming the CPU mesh it did not take."""
+    args = ["--p2p-port", "0", "--store", str(tmp_path / component)]
+    if component == "agent":
+        args += ["--tracker", "127.0.0.1:1"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "kraken_tpu_torch.cli", component, "--hasher", "cuda-sharded",
+         "--port", "0", *args],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES=""),
+    )
+    (tmp_path / f"{component}.err").write_text(proc.stderr)
+    assert proc.returncode != 0 and "READY" not in proc.stdout
+    assert "CUDA" in proc.stderr and "platform='cpu'" in proc.stderr
 
 
 def free_ports(n: int) -> list[int]:

@@ -70,7 +70,9 @@ def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
                    "backend/shadowbackend.py", "backend/s3backend.py",
                    "backend/hdfsbackend.py", "backend/registrybackend.py",
                    "lint/__init__.py", "lint/findings.py", "lint/pragmas.py",
-                   "lint/rules.py", "lint/project.py", "lint/engine.py", "p2p/sim.py"):
+                   "lint/rules.py", "lint/project.py", "lint/engine.py", "p2p/sim.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/hashplane.py",
+                   "parallel/dryrun.py", "parallel/multihost.py"):
         assert f"kraken_tpu_torch/{module}" in scanned, module
     bad = {
         str(f.relative_to(REPO)): m
@@ -447,6 +449,24 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
     assert kt.MinHasher(device="cpu").device == torch.device("cpu")
     index = kt.DedupIndex(store, device="cpu")
     assert index.hasher.name == "cuda" and index.hasher.device == torch.device("cpu")
+
+
+def test_the_parallel_plane_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
+    from kraken_tpu_torch.parallel import ShardedPieceHasher, piece_mesh
+    from kraken_tpu_torch.parallel.multihost import multihost_hash_pieces
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(hasher_mod, "_INSTANCES", {})
+    for entry in (
+        piece_mesh,
+        ShardedPieceHasher,
+        lambda: kt.get_hasher("cuda-sharded"),
+        lambda: multihost_hash_pieces(np.zeros((2, 64), dtype=np.uint8), 64),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA.*platform='cpu'"):
+            entry()
+    hasher = ShardedPieceHasher(piece_mesh(2, platform="cpu"))
+    assert hasher.device == torch.device("cpu") and hasher.mesh.size == 2
 
 
 def test_the_agent_archive_verifies_on_the_card_by_default(monkeypatch, tmp_path):

@@ -228,6 +228,53 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     }
 
 
+def test_plain_version_calls_from_many_threads_run_one_at_a_time(monkeypatch):
+    """Concurrent CPU calls (an agent's verify flushes run in threads)
+    take the plain version one at a time: its thousands of small eager ops
+    would otherwise convoy on the GIL. Twelve threads on 8 cores, a short
+    switch interval; each digest still equals hashlib's."""
+    import sys
+    import threading
+
+    busy, peak = [0], [0]
+    count = threading.Lock()
+    real = sha256_ref.sha256_rows_ref
+
+    def watched(*args):
+        with count:
+            busy[0] += 1
+            peak[0] = max(peak[0], busy[0])
+        try:
+            return real(*args)
+        finally:
+            with count:
+                busy[0] -= 1
+
+    monkeypatch.setattr(sha256_cuda, "sha256_rows_ref", watched)
+    rng = np.random.default_rng(21)
+    pieces = [_bytes(rng, 200 + 37 * i) for i in range(12)]
+    hasher = TorchPieceHasher(device="cpu")
+    got = [None] * len(pieces)
+
+    def run(i):
+        got[i] = hasher.hash_batch([pieces[i]])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(pieces))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert peak[0] == 1
+    for piece, digest in zip(pieces, got):
+        assert digest.tobytes() == hashlib.sha256(piece).digest()
+
+
 def test_metrics_record_split():
     """hash_batch records its pieces; hash_pieces records the blob once,
     its ragged tail included (the raw path records nothing)."""
