@@ -89,15 +89,19 @@ without a result:
    gear kernel must launch once per 64 MiB window and the ragged SHA-256
    at least once. Each blob's wall splits into chunk, hash and sketch
    seconds. The ragged SHA-256 is timed at the chunk shape.
-10. ``relayout`` -- the diagnostic kernel of ``csrc/transpose.cu`` (the
-   natural SHA-256 kernel's loads with no rounds) against its plain
-   version, word for word: 1024 x 512 B, 2048 x 1 KiB, and a
-   piece-distinct 2048 x 512 B input that pins the ``[t, i, s, l]``
-   layout to its closed form. Then the natural-vs-packed gap decomposition
+10. ``relayout`` -- the two fold kernels of ``csrc/transpose.cu``
+   (``transpose_only``, the fold that fills the card, and
+   ``natural_loads_only``, the natural SHA-256 kernel's block-ring loads
+   with no rounds) against their plain version, word for word: 1024 x
+   512 B, 2048 x 1 KiB, 1024 x 20,992 B (a piece that is not a whole
+   number of the fold's 16 KiB segments), and a piece-distinct 2048 x
+   512 B input that pins the ``[t, i, s, l]`` layout to its closed form.
+   Then the natural-vs-packed gap decomposition
    (``kraken_tpu_torch.bench.transpose.decompose``) at the JAX bench's
    shape, 1024 x 256 KiB, and at 132 x 1024 x 64 KiB: the transpose-only,
-   natural and packed kernels timed, each beside its bound; the kernel
-   held against its plain version and the natural digests against the
+   natural-loads, natural and packed kernels timed, each beside its
+   bound, ``value`` predicted from the natural-loads leg; both folds
+   held against their plain version and the natural digests against the
    packed ones at both shapes. Each decomposition is a path of its own: the
    counters are zeroed just before it and read just after, and every
    kernel it drives must have launched exactly as often as it times them.
@@ -461,6 +465,9 @@ TAIL = 12_345
 # The relayout decomposition's full-card shape: 132 tiles of 1024 pieces,
 # 1,024 pieces an SM, chip_sha256_sweep.py's top point.
 FULL_TILES = 132
+# A piece length that is not a whole number of transpose_only's 16 KiB
+# segments: 16 KiB + 4,608 B (41 x 512 B).
+RELAYOUT_EDGE_P = 20_992
 # The gear pass's work a byte, each operation once in its least Hopper form
 # and by the pipes it can issue to, as for SHA-256. The gear map is a
 # lookup in a shared-memory table of its 256 values with a copy in every
@@ -1979,8 +1986,13 @@ class HerdChild:
             return f.read()
 
     def metrics(self) -> str:
-        with urllib.request.urlopen(f"http://{self.addr}/metrics", timeout=30) as r:
-            return r.read().decode()
+        try:
+            with urllib.request.urlopen(f"http://{self.addr}/metrics", timeout=30) as r:
+                return r.read().decode()
+        except urllib.error.HTTPError:
+            # The node logs the handler's traceback: show it with the failure.
+            sys.stderr.write(f"--- herd {self.name} stderr ---\n{self.log()[-8000:]}\n")
+            raise
 
     def stop(self, kill: bool = False) -> int:
         if self.proc.poll() is None:
@@ -2599,14 +2611,15 @@ def front_door_phase(root: str, card_name_power: str) -> dict:
 # origin (delta and chunk tier on), agent A (delta and chunk tier on) and
 # agent B (the shipped values: both off, the control) as four CLI processes.
 DELTA_NS = "library/delta"
-DELTA_FILES = 1024
+DELTA_FILES = 512  # 512 MiB builds: 1024 files took the phase 160-171 s on an H100
 DELTA_FILE = MiB
 DELTA_REUSE = 0.8
 DELTA_BAND_MAX = 0.6  # the reference's BAND_MAX (tests/test_delta.py:37)
 DELTA_TIMEOUT_S = 300.0
 DELTA_ON = "delta:\n  enabled: true\nchunkstore:\n  enabled: true\n"
 DELTA_KERNELS = ("sha256_uniform", "sha256_ragged", "sha256_packed_tiles",
-                 "pack_tiles_device", "gear_candidates", "transpose_only")
+                 "pack_tiles_device", "gear_candidates", "transpose_only",
+                 "natural_loads_only")
 
 
 def make_build_pair(rng, n_files: int, file_bytes: int, reuse: float) -> tuple[bytes, bytes]:
@@ -3243,7 +3256,8 @@ SHARDS_ORIGIN = "scheduler:\n  data_plane_workers: {}\n"
 SHARDS_A = "scheduler:\n  data_plane_workers: 2\n  leech_workers: 2\n"
 SHARDS_B = "scheduler:\n  conn_state:\n    max_open_conns_per_torrent: 1\n"
 SHARDS_KERNELS = ("sha256_uniform", "sha256_ragged", "pack_tiles_device",
-                  "sha256_packed_tiles", "gear_candidates", "transpose_only")
+                  "sha256_packed_tiles", "gear_candidates", "transpose_only",
+                  "natural_loads_only")
 
 
 def shard_sum(text: str, name: str, prefix: str) -> float:
@@ -4593,7 +4607,7 @@ def main() -> int:
         pack_tiles_ref, packed_nb, sha256_packed_ref, sha256_rows_ref,
         sha256_uniform_ref,
     )
-    from kraken_tpu_torch.ops.transpose_cuda import transpose_only
+    from kraken_tpu_torch.ops.transpose_cuda import natural_loads_only, transpose_only
     from kraken_tpu_torch.ops.transpose_ref import transpose_only_ref
     from kraken_tpu_torch.utils.metrics import REGISTRY
 
@@ -5263,11 +5277,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 10. relayout: the diagnostic kernel and the gap decomposition -------
-    checks, t_errs = [], []
-    for m, p in ((1024, 512), (2048, KiB)):
+    # -- 10. relayout: the two fold kernels and the gap decomposition ------
+    folds = {"transpose_only": transpose_only, "natural_loads_only": natural_loads_only}
+    checks, t_errs = [], {name: [] for name in folds}
+    # 1024 x 20,992 B: one 16 KiB segment of transpose_only's and an edge
+    # segment of 4,608 B (288 vectors: more than a block's 256 threads).
+    for m, p in ((1024, 512), (2048, KiB), (1024, RELAYOUT_EDGE_P)):
         rows = torch.from_numpy(rng.integers(0, 256, (m, p), dtype=np.uint8)).to(dev)
-        t_errs.append(word_err(transpose_only(rows), transpose_only_ref(rows)))
+        want = transpose_only_ref(rows)
+        for name, fold in folds.items():
+            t_errs[name].append(word_err(fold(rows), want))
         checks.append(f"{m} x {p} B vs plain")
     # Piece-distinct: only the first line of piece q is not zero, and its
     # big-endian word i is q * 8 + i, so word i of piece t * 1024 + s * 128
@@ -5277,13 +5296,15 @@ def main() -> int:
     host_rows = np.zeros((m, 512), dtype=np.uint8)
     host_rows[:, :32] = first.astype(">u4").view(np.uint8)
     rows = torch.from_numpy(host_rows).to(dev)
-    got = transpose_only(rows)
-    t_errs.append(word_err(got, transpose_only_ref(rows)))
+    want = transpose_only_ref(rows)
     layout = first.reshape(m // 1024, 8, 128, 8).transpose(0, 3, 1, 2).view(np.int32)
-    if not np.array_equal(got.cpu().numpy(), layout):
-        raise AssertionError("relayout: the [t, i, s, l] layout is wrong")
+    for name, fold in folds.items():
+        got = fold(rows)
+        t_errs[name].append(word_err(got, want))
+        if not np.array_equal(got.cpu().numpy(), layout):
+            raise AssertionError(f"relayout: {name}'s [t, i, s, l] layout is wrong")
     checks.append(f"piece-distinct {m} x 512 B vs plain and the closed form")
-    del rows, got
+    del rows, got, want
 
     def legs(r):
         """Each leg of a decomposition: ms, GB/s of input, bound."""
@@ -5292,6 +5313,7 @@ def main() -> int:
         t_ms, t_by = card.bound_of(m * p // 2, m * p + m * 32)  # bswap + xor a word
         bounds = {
             "transpose_only": {"bound_ms": t_ms, "bound_by": t_by},
+            "natural_loads": {"bound_ms": t_ms, "bound_by": t_by},
             "natural": card.sha_bound(ROWS_KERNEL, *rows_work([p] * m)),
             "rounds_only_packed": card.sha_bound(PACKED_KERNEL, *packed_work(m, nb)),
         }
@@ -5301,7 +5323,8 @@ def main() -> int:
 
     # A warm-up and REPS timed launches a leg, one pack, no ragged hash.
     expect = {"sha256_uniform": REPS + 1, "sha256_ragged": 0, "pack_tiles_device": 1,
-              "sha256_packed_tiles": REPS + 1, "transpose_only": REPS + 1}
+              "sha256_packed_tiles": REPS + 1, "transpose_only": REPS + 1,
+              "natural_loads_only": REPS + 1}
     decomps, relayout_launches = {}, {}
     for label, tiles, p in (("bench_shape", 1, 256 * KiB), ("full_card", FULL_TILES, 64 * KiB)):
         t0 = time.perf_counter()
@@ -5312,9 +5335,9 @@ def main() -> int:
         clock = card.sm_clock_mhz()  # decompose raised if a check failed
         if launches != expect:
             raise AssertionError(f"relayout {label}: launches {launches} != {expect}")
-        checks.append(f"decompose {tiles} x 1024 x {p} B: kernel vs plain, natural vs packed digests")
+        checks.append(f"decompose {tiles} x 1024 x {p} B: both folds vs plain, natural vs packed digests")
         decomps[label] = r
-        relayout_launches[label] = launches["transpose_only"]
+        relayout_launches[label] = {name: launches[name] for name in folds}
         emit({"phase": "relayout", "shape": label, "tiles": r["tiles"],
               "piece_len": r["piece_len"], "value": r["value"],
               "predicted_natural_gbps": r["predicted_natural_gbps"], "legs": legs(r),
@@ -5323,12 +5346,24 @@ def main() -> int:
               "sm_clock_mhz": clock, "seconds": time.perf_counter() - t0})
         gc.collect()
         torch.cuda.empty_cache()
-    t_err = max(t_errs)
-    if t_err:
-        raise AssertionError(f"relayout: transpose_only != plain version (max abs err {t_err})")
+    t_err = {name: max(errs) for name, errs in t_errs.items()}
+    if any(t_err.values()):
+        raise AssertionError(f"relayout: a fold != its plain version (max abs err {t_err})")
     full = decomps["full_card"]
-    t_bound = legs(full)["transpose_only"]
-    emit({"phase": "relayout", "checks": checks, "max_abs_err": t_err})
+    full_legs = legs(full)
+    bench_legs = legs(decomps["bench_shape"])
+    # Both folds at the bench shape queued behind a spin: their device time
+    # without the host's time to issue a launch, which decompose's events
+    # on an idle card count (outside the counted runs above).
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = torch.randint(0, 256, (1024, 256 * KiB), dtype=torch.uint8, device=dev, generator=gen)
+    fold_queued = {}
+    for name, fold in folds.items():
+        fold_queued[name] = statistics.median(
+            queued_ms(lambda f=fold: f(rows)) for _ in range(3))
+    del rows
+    emit({"phase": "relayout", "checks": checks, "max_abs_err": t_err,
+          "queued_ms_at_bench_shape": fold_queued})
 
     # -- 11. swarm: port schedulers over loopback, verify on the card -------
     gc.collect()
@@ -5581,19 +5616,29 @@ def main() -> int:
          "front_door_launches": {"origin": fc["origin_launches"]["gear_candidates"],
                                  "agent": fc["agent_launches"]["gear_candidates"]},
          "shape": "one 64 MiB window", "plain_shape": "one 64 MiB window"},
-        # A diagnostic on no path of the system: the main path launches it
-        # no time; each decomposition's own launches stand beside.
-        {"name": "transpose_only", "route": "cuda", "source": "kraken_tpu_torch/csrc/transpose.cu",
-         "replaces": "bench_transpose.py:80", "launches": main_launches["transpose_only"],
-         "relayout_launches": relayout_launches,
-         "origin_http_launches": origin_launches("transpose_only"), "delta_launches": delta_launches("transpose_only"),
-         "operator_launches": operator_launches("transpose_only"),
-         "shards_launches": shards_launches("transpose_only"),
-         "backends_launches": backends_launches("transpose_only"), "max_abs_err": t_err,
-         "ms": full["transpose_only_ms"], "plain_ms": full["transpose_only_plain_ms"],
-         "bound_ms": t_bound["bound_ms"], "bound_by": t_bound["bound_by"], "library_ms": None,
-         "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
-         "ms_at_bench_shape": decomps["bench_shape"]["transpose_only_ms"]},
+        # Diagnostics on no path of the system: the main path launches them
+        # no time; each decomposition's own launches stand beside. Both
+        # compute one function, so they share its plain version and bound.
+        *({"name": name, "route": "cuda", "source": "kraken_tpu_torch/csrc/transpose.cu",
+           "replaces": replaces, "launches": main_launches[name],
+           "relayout_launches": {label: n[name] for label, n in relayout_launches.items()},
+           "origin_http_launches": origin_launches(name), "delta_launches": delta_launches(name),
+           "operator_launches": operator_launches(name),
+           "shards_launches": shards_launches(name),
+           "backends_launches": backends_launches(name), "max_abs_err": t_err[name],
+           "ms": full[f"{leg}_ms"], "plain_ms": full["transpose_only_plain_ms"],
+           "bound_ms": full_legs[leg]["bound_ms"], "bound_by": full_legs[leg]["bound_by"],
+           "share_of_bound": full_legs[leg]["share_of_bound"], "library_ms": None,
+           "shape": f"{FULL_TILES} x 1024 x 64 KiB", "plain_shape": f"{FULL_TILES} x 1024 x 64 KiB",
+           "ms_at_bench_shape": decomps["bench_shape"][f"{leg}_ms"],
+           "bound_ms_at_bench_shape": bench_legs[leg]["bound_ms"],
+           "share_of_bound_at_bench_shape": bench_legs[leg]["share_of_bound"],
+           "queued_ms_at_bench_shape": fold_queued[name]}
+          for name, leg, replaces in (
+              ("transpose_only", "transpose_only", "bench_transpose.py:80"),
+              ("natural_loads_only", "natural_loads",
+               "none: replaces no TPU kernel; the gap decomposition's loads leg, "
+               "sha256_rows_kernel's block ring (csrc/sha256.cu)"))),
     ], "main_path_seconds": main_secs, "ingest_seconds": ingest_secs,
         "dedup_seconds": dedup_secs, "swarm_seconds": swarm_secs,
         "tracker_seconds": tracker_secs, "origin_http_seconds": origin_secs,

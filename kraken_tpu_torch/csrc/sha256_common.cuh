@@ -1,9 +1,9 @@
 // SHA-256 compression shared by the kernels of csrc/sha256.cu and
 // csrc/sha256_packed.cu: the round constants, the initial state, the block
 // ring that takes the block load out of a row's chain, and one unrolled
-// compression with a 16-word schedule ring in registers; and the aligned
-// block load of the relayout diagnostic (csrc/transpose.cu), which times
-// the natural kernel's loads as they were before the ring.
+// compression with a 16-word schedule ring in registers. The relayout
+// diagnostic's loads leg (csrc/transpose.cu, natural_loads_kernel) uses
+// the ring as sha256_rows_kernel does.
 //
 // The compression needs 1,024 ALU-pipe operations a block (64 rounds of 6
 // funnel-shift rotates and 4 three-input logic ops, 48 schedule steps of 6
@@ -54,23 +54,6 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
 // Little-endian load -> big-endian SHA word.
 __device__ __forceinline__ uint32_t bswap(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
-}
-
-// One 64-byte block of a 16-byte aligned natural row at q, as SHA words:
-// four 128-bit read-only loads, each word byte-swapped to big-endian. The
-// relayout diagnostic (csrc/transpose.cu) loads through here: the natural
-// hash's loads as they were before its block ring, at the top of each
-// block.
-__device__ __forceinline__ void load_block_aligned(const uint4* __restrict__ q,
-                                                   uint32_t w[16]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint4 v = __ldg(q + k);
-    w[4 * k + 0] = bswap(v.x);
-    w[4 * k + 1] = bswap(v.y);
-    w[4 * k + 2] = bswap(v.z);
-    w[4 * k + 3] = bswap(v.w);
-  }
 }
 
 // Asynchronous copies from device memory into shared memory (cp.async),

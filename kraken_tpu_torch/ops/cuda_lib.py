@@ -46,6 +46,7 @@ _ENTRIES = {
     "pack_tiles_launch": (_P, _I64, _I64, _I64, _P),
     "gear_candidates_launch": (_P, _I64, _I32, _U32, _U32, _P),
     "transpose_only_launch": (_P, _I64, _I64, _P),
+    "natural_loads_launch": (_P, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()

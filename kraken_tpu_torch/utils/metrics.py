@@ -359,14 +359,18 @@ def kernel_launch_lines(openmetrics: bool = False) -> str:
     launches in this process, as its wrapper counts them (the wrappers'
     ``LAUNCHES``), for the wrappers this process has loaded. A process
     that runs no kernel shows none. The port's own series: the reference
-    has no counterpart."""
+    has no counterpart.
+
+    A wrapper that another thread is still importing (a node's first
+    dedup pass imports ``cdc_cuda``) already stands in ``sys.modules``
+    without its ``LAUNCHES``: it has launched nothing, and is left out."""
     import sys
 
     counts: dict[str, int] = {}
     for name in _LAUNCH_MODULES:
-        mod = sys.modules.get(name)
-        if mod is not None:
-            counts.update(mod.LAUNCHES)
+        launches = getattr(sys.modules.get(name), "LAUNCHES", None)
+        if launches is not None:
+            counts.update(launches)
     if not counts:
         return ""
     # OpenMetrics names a counter's family without its _total suffix.

@@ -42,7 +42,7 @@ def _imports(path: Path) -> list[str]:
 
 def test_no_module_of_the_port_imports_jax_or_kraken_tpu():
     files = sorted((REPO / "kraken_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "chip_sha256_sweep.py",
+        REPO / "chip_smoke.py", REPO / "chip_sha256_sweep.py", REPO / "chip_transpose_sweep.py",
     ]
     assert len(files) > 10
     scanned = {str(f.relative_to(REPO)) for f in files}

@@ -489,3 +489,21 @@ def test_metrics_carries_kernel_launches_on_both_formats(monkeypatch):
     assert "# TYPE kernel_launches_total counter" in classic.splitlines()
     assert "# TYPE kernel_launches counter" in om.splitlines()
     assert om.endswith("# EOF\n") and "# TYPE http_requests_total" not in om
+
+
+def test_kernel_launches_leave_out_a_wrapper_still_being_imported(monkeypatch):
+    """A scrape that lands while another thread imports a wrapper (the
+    module already in ``sys.modules``, its ``LAUNCHES`` not yet bound)
+    renders the loaded wrappers' counts and leaves that one out, where it
+    used to raise and answer 500."""
+    import sys
+    import types
+
+    from kraken_tpu_torch.ops import sha256_cuda
+
+    monkeypatch.setattr(sha256_cuda, "LAUNCHES", {"sha256_ragged": 3, "sha256_uniform": 0})
+    monkeypatch.setitem(sys.modules, "kraken_tpu_torch.ops.cdc_cuda",
+                        types.ModuleType("kraken_tpu_torch.ops.cdc_cuda"))
+    lines = port_metrics.kernel_launch_lines().splitlines()
+    assert 'kernel_launches_total{kernel="sha256_ragged"} 3' in lines
+    assert not any("gear_candidates" in ln for ln in lines)
