@@ -41,7 +41,10 @@ uniform window of a hasher with the staged-window protocol
 placed on its mesh and hashed there, billed to transfer and hash apart;
 other windows take the hasher's own ``hash_pieces``, bit-identically.
 
-Every window observes ``ingest_stage_seconds{stage}``. Digests are
+Every window observes ``ingest_stage_seconds{stage}``. The hash plane's
+``ingest`` path (``utils/trace.py``) bills the reader's wait for a free
+window slot (``slot``), a window's wait for its worker (``pool``) and,
+inside the hasher, its staging, submit and readback. Digests are
 bit-identical to the serial oracle by construction: pipelining reorders
 WHEN a piece is hashed, never piece boundaries.
 """
@@ -69,7 +72,7 @@ from kraken_tpu_torch.core.hasher import (
 from kraken_tpu_torch.ops import sha256_cuda
 from kraken_tpu_torch.ops.sha256 import _digest_bytes
 from kraken_tpu_torch.ops.sha256_ref import N_TILE, packed_nb
-from kraken_tpu_torch.utils import failpoints
+from kraken_tpu_torch.utils import failpoints, trace
 from kraken_tpu_torch.utils.bufpool import BufferPool
 from kraken_tpu_torch.utils.metrics import REGISTRY
 
@@ -271,6 +274,8 @@ class IngestSession:
         # straight to the host pass. Benign cross-thread bool.
         self._fell_back = False
         self.stage_seconds: dict[str, float] = dict.fromkeys(STAGES, 0.0)
+        # The reader's waits for a free window slot (not a pipeline stage).
+        self.slot_seconds = 0.0
         self.windows = 0
         self.wall_seconds = 0.0
 
@@ -288,7 +293,9 @@ class IngestSession:
             raise failpoints.FailpointError("ingest.window.read")
         # Blocks while windows_in_flight windows are queued/running: the
         # NEXT read must not race ahead of the staging budget.
-        self._sem.acquire()
+        with trace.stage("slot", "ingest") as slot:
+            self._sem.acquire()
+        self.slot_seconds += slot.seconds
         if self._t0 is None:
             self._t0 = time.perf_counter()
         self._lease = self.pipeline._bufpool.lease(self.window_bytes)
@@ -302,7 +309,8 @@ class IngestSession:
         if not 0 <= nbytes <= self.window_bytes:
             raise ValueError(f"submit: {nbytes} outside window")
         lease, self._lease = self._lease, None
-        read_s = time.perf_counter() - self._read_t0
+        now = time.perf_counter()
+        read_s = now - self._read_t0
         self.stage_seconds["read"] += read_s
         record_stage("read", read_s)
         self.windows += 1
@@ -311,7 +319,7 @@ class IngestSession:
             self._sem.release()
             return
         fut = self.pipeline._get_executor().submit(
-            self._process, lease, nbytes
+            self._process, lease, nbytes, now
         )
         self._futs.append(fut)
 
@@ -400,45 +408,50 @@ class IngestSession:
         self.stage_seconds[stage] += seconds
         record_stage(stage, seconds)
 
-    def _process(self, lease, nbytes: int) -> np.ndarray:
+    def _process(self, lease, nbytes: int, submitted: float) -> np.ndarray:
+        trace.bill("pool", time.perf_counter() - submitted, path="ingest")
         try:
-            view = lease.view[:nbytes]
-            plen = self.piece_length
-            if self._fell_back:
-                # A previous window already tripped the device fallback:
-                # the rest of the stream stays on the host path (a card
-                # that faulted once is not re-trusted mid-blob).
-                return self._host_window(view, plen)
-            try:
-                if failpoints.fire("origin.ingest.device_fail"):
-                    raise failpoints.FailpointError(
-                        "origin.ingest.device_fail"
-                    )
-                return self._hasher_window(view, plen)
-            except failpoints.FailpointError as e:
-                # The fallback drill: an injected device-path fault
-                # reroutes this window AND the stream remainder to the
-                # host hashlib pass -- bit-identical by construction (same
-                # piece boundaries, same SHA-256). Any other error (a
-                # kernel that did not build or launch) propagates: the
-                # session fails and the caller sees it, rather than the
-                # card path quietly running on the CPU.
-                self._fell_back = True
-                REGISTRY.counter(
-                    "ingest_fallbacks_total",
-                    "Ingest windows rerouted to the host hash path after"
-                    " an injected device-path fault (one increment per"
-                    " fallback event, not per rerouted window)",
-                ).inc(reason="failpoint")
-                _log.warning(
-                    "ingest window hash failed on %s (%s); host hash "
-                    "path takes the stream remainder",
-                    self.pipeline.hasher.name, e,
-                )
-                return self._host_window(view, plen)
+            with trace.plane("ingest"):
+                return self._window(lease.view[:nbytes])
         finally:
             lease.release()
             self._sem.release()
+
+    def _window(self, view) -> np.ndarray:
+        """One window: the hasher's path, or the host pass after a fault."""
+        plen = self.piece_length
+        if self._fell_back:
+            # A previous window already tripped the device fallback:
+            # the rest of the stream stays on the host path (a card
+            # that faulted once is not re-trusted mid-blob).
+            return self._host_window(view, plen)
+        try:
+            if failpoints.fire("origin.ingest.device_fail"):
+                raise failpoints.FailpointError(
+                    "origin.ingest.device_fail"
+                )
+            return self._hasher_window(view, plen)
+        except failpoints.FailpointError as e:
+            # The fallback drill: an injected device-path fault
+            # reroutes this window AND the stream remainder to the
+            # host hashlib pass -- bit-identical by construction (same
+            # piece boundaries, same SHA-256). Any other error (a
+            # kernel that did not build or launch) propagates: the
+            # session fails and the caller sees it, rather than the
+            # card path quietly running on the CPU.
+            self._fell_back = True
+            REGISTRY.counter(
+                "ingest_fallbacks_total",
+                "Ingest windows rerouted to the host hash path after"
+                " an injected device-path fault (one increment per"
+                " fallback event, not per rerouted window)",
+            ).inc(reason="failpoint")
+            _log.warning(
+                "ingest window hash failed on %s (%s); host hash "
+                "path takes the stream remainder",
+                self.pipeline.hasher.name, e,
+            )
+            return self._host_window(view, plen)
 
     def _hasher_window(self, view, plen: int) -> np.ndarray:
         """The configured hasher's path for one window: the packed kernels,

@@ -14,6 +14,11 @@ one kernel launch (:mod:`kraken_tpu_torch.ops.sha256_cuda`).
 
 Bytes reach the card through pinned host memory. The card returns digest
 words; the host turns them into big-endian bytes with numpy.
+
+Each group's stages are billed to the caller's hash plane
+(``utils/trace.py``): ``stage`` (the pinned buffer and the copies into
+it), ``submit`` (the host-to-device enqueue; the wrapper adds its launch),
+``check`` (the ragged wrapper's bounds check) and ``readback``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from kraken_tpu_torch.core.hasher import DIGEST_SIZE, PieceHasher, register_hash
 from kraken_tpu_torch.core.hasher import record_hash_metrics as _record_hash_metrics
 from kraken_tpu_torch.ops import resolve_device
 from kraken_tpu_torch.ops.sha256_cuda import sha256_ragged, sha256_uniform
+from kraken_tpu_torch.utils import trace
 
 
 def _digest_bytes(words: torch.Tensor) -> np.ndarray:
@@ -85,12 +91,16 @@ class TorchPieceHasher(PieceHasher):
         outs = []
         for s in range(0, n_full, per_batch):
             g = min(per_batch, n_full - s)
-            host = self._staging(g * piece_length)
-            host.numpy()[:] = src[s * piece_length : (s + g) * piece_length]
-            outs.append(
-                sha256_uniform(self._to_device(host).view(g, piece_length))
-            )
-        parts = [_digest_bytes(o) for o in outs]
+            with trace.stage("stage"):
+                host = self._staging(g * piece_length)
+                host.numpy()[:] = src[s * piece_length : (s + g) * piece_length]
+            with trace.stage("submit"):
+                rows = self._to_device(host).view(g, piece_length)
+            outs.append(sha256_uniform(rows))
+        parts = []
+        for o in outs:
+            with trace.stage("readback"):
+                parts.append(_digest_bytes(o))
         if n > n_full:
             parts.append(self._hash_batch_raw([view[n_full * piece_length :]]))
         out = parts[0] if len(parts) == 1 else np.concatenate(parts)
@@ -129,16 +139,18 @@ class TorchPieceHasher(PieceHasher):
                 e += 1
             offsets = np.zeros(e - s, dtype=np.int64)
             np.cumsum(sizes[s : e - 1], out=offsets[1:])
-            host = self._staging(size)
-            buf = host.numpy()
-            for v, off in zip(views[s:e], offsets.tolist()):
-                buf[off : off + len(v)] = np.frombuffer(v, dtype=np.uint8)
-            words = sha256_ragged(
-                self._to_device(host),
-                self._to_device(torch.from_numpy(offsets)),
-                self._to_device(torch.from_numpy(lengths[s:e])),
-            )
-            out[s:e] = _digest_bytes(words)
+            with trace.stage("stage"):
+                host = self._staging(size)
+                buf = host.numpy()
+                for v, off in zip(views[s:e], offsets.tolist()):
+                    buf[off : off + len(v)] = np.frombuffer(v, dtype=np.uint8)
+            with trace.stage("submit"):
+                flat = self._to_device(host)
+                d_off = self._to_device(torch.from_numpy(offsets))
+                d_len = self._to_device(torch.from_numpy(lengths[s:e]))
+            words = sha256_ragged(flat, d_off, d_len)
+            with trace.stage("readback"):
+                out[s:e] = _digest_bytes(words)
             s = e
         return out
 

@@ -29,7 +29,11 @@ time); a CUDA tensor launches the kernel or raises. The kernels live in the port
 library, built at first use (:mod:`kraken_tpu_torch.ops.cuda_lib`).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernel.
+that its main path went through the kernel. The two ``sha256_rows``
+wrappers bill their launch (or plain version) to the hash plane's
+``submit`` stage without an event, the caller's host-to-device enqueue
+being the event, and ``sha256_ragged`` its bounds check to ``check``
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from kraken_tpu_torch.ops.sha256_ref import (
     sha256_uniform_ref,
     uniform_rows,
 )
+from kraken_tpu_torch.utils import trace
 
 LAUNCHES = {
     "sha256_uniform": 0, "sha256_ragged": 0,
@@ -116,14 +121,19 @@ def sha256_ragged(
         raise ValueError(
             f"{offsets.numel()} offsets for {lengths.numel()} lengths"
         )
-    if lengths.numel() and bool(
-        ((offsets < 0) | (lengths < 0) | (offsets + lengths > flat.numel())).any()
-    ):
-        raise ValueError("a row lies outside flat")
-    if flat.device.type == "cpu":
-        with _plain_lock:
-            return sha256_rows_ref(flat, offsets, lengths)
-    return _launch("sha256_ragged", flat, offsets, lengths)
+    if lengths.numel():
+        # A device sync on the card: it waits out every launch queued ahead.
+        with trace.stage("check"):
+            outside = bool(
+                ((offsets < 0) | (lengths < 0) | (offsets + lengths > flat.numel())).any()
+            )
+        if outside:
+            raise ValueError("a row lies outside flat")
+    with trace.stage("submit", count=False):
+        if flat.device.type == "cpu":
+            with _plain_lock:
+                return sha256_rows_ref(flat, offsets, lengths)
+        return _launch("sha256_ragged", flat, offsets, lengths)
 
 
 def sha256_uniform(rows: torch.Tensor) -> torch.Tensor:
@@ -132,10 +142,11 @@ def sha256_uniform(rows: torch.Tensor) -> torch.Tensor:
     _check_device(rows)
     if rows.dim() != 2 or rows.dtype != torch.uint8 or not rows.is_contiguous():
         raise ValueError("rows must be a contiguous 2-D uint8 tensor")
-    if rows.device.type == "cpu":
-        with _plain_lock:
-            return sha256_uniform_ref(rows)
-    return _launch("sha256_uniform", *uniform_rows(rows))
+    with trace.stage("submit", count=False):
+        if rows.device.type == "cpu":
+            with _plain_lock:
+                return sha256_uniform_ref(rows)
+        return _launch("sha256_uniform", *uniform_rows(rows))
 
 
 def pack_tiles_device(rows: torch.Tensor, unpadded_blocks: int) -> torch.Tensor:

@@ -104,7 +104,7 @@ class Generator:
         size = self.store.cache_size(d)  # KeyError if absent
         piece_length = self.piece_lengths.piece_length(size)
         if self.pipeline is not None:
-            hashes = self._generate_pipelined(d, piece_length)
+            hashes = self._generate_pipelined(d, size, piece_length)
             metainfo = MetaInfo(d, size, piece_length, hashes.tobytes())
             self.store.set_metadata(d, TorrentMetaMetadata(metainfo))
             return metainfo
@@ -145,25 +145,35 @@ class Generator:
         self.store.set_metadata(d, TorrentMetaMetadata(metainfo))
         return metainfo
 
-    def _generate_pipelined(self, d: Digest, piece_length: int) -> np.ndarray:
+    def _generate_pipelined(
+        self, d: Digest, size: int, piece_length: int
+    ) -> np.ndarray:
         """Stream the blob through the ingest pipeline: ``readinto`` lands
         each window's bytes directly in the staging buffer the hasher
         consumes, and the pipeline overlaps window k+1's read with window
         k's pack/transfer/hash. Digests are bit-identical to the serial
-        loop -- same piece boundaries."""
+        loop -- same piece boundaries. The span carries the session's
+        stage walls and its waits for a window slot."""
         ses = self.pipeline.session(piece_length)
-        try:
-            with self.store.open_cache_file(d) as f:
-                while True:
-                    buf = ses.begin_window()
-                    n = f.readinto(buf)
-                    ses.submit(n or 0)
-                    if not n or n < len(buf):
-                        break
-            return ses.finish()
-        except BaseException:
-            ses.abort()
-            raise
+        with trace.span("origin.metainfo.generate", digest=d.hex[:12]) as sp:
+            try:
+                with self.store.open_cache_file(d) as f:
+                    while True:
+                        buf = ses.begin_window()
+                        n = f.readinto(buf)
+                        ses.submit(n or 0)
+                        if not n or n < len(buf):
+                            break
+                hashes = ses.finish()
+            except BaseException:
+                ses.abort()
+                raise
+            if sp is not None:
+                sp.set(size=size, windows=ses.windows,
+                       slot_s=round(ses.slot_seconds, 6),
+                       **{f"{k}_s": round(v, 6)
+                          for k, v in ses.stage_seconds.items()})
+        return hashes
 
     async def generate(self, d: Digest) -> MetaInfo:
         """Off-loop :meth:`generate_sync` (reads + hashes a whole blob)."""

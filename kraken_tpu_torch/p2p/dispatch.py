@@ -20,7 +20,7 @@ from kraken_tpu_torch.core.peer import PeerID
 from kraken_tpu_torch.p2p.conn import Conn, ConnClosedError
 from kraken_tpu_torch.p2p.networkevent import NoopProducer, Producer
 from kraken_tpu_torch.p2p.piecerequest import RequestManager
-from kraken_tpu_torch.p2p.storage import PieceError, Torrent
+from kraken_tpu_torch.p2p.storage import PIECE_DUPLICATES, PieceError, Torrent
 from kraken_tpu_torch.p2p.wire import Message, MsgType
 from kraken_tpu_torch.utils import trace
 from kraken_tpu_torch.utils.metrics import REGISTRY
@@ -424,6 +424,7 @@ class Dispatcher:
         self._bytes_down += len(data)
         self._ctr_down.inc(len(data))
         if self.torrent.has_piece(idx):
+            PIECE_DUPLICATES.inc(when="before_verify")
             self.requests.clear_piece(idx)
             await self._request_more(peer)
             return

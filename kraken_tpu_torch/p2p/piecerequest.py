@@ -12,6 +12,15 @@ import time
 from typing import Iterable
 
 from kraken_tpu_torch.core.peer import PeerID
+from kraken_tpu_torch.utils.metrics import REGISTRY
+
+_RE_REQUESTS = REGISTRY.counter(  # kt-lint: disable=metric-catalog  # the port's own counter (ROADMAP §C); docs/OPERATIONS.md is the reference's catalog, which the port does not edit
+    "p2p_piece_rerequests_total",
+    "Piece requests handed out again, by reason: expired (every pending "
+    "request of the piece timed out), rescue (a duplicate of a request "
+    "past stale_after while other pieces were still unrequested), "
+    "endgame (a duplicate once every missing piece was in flight)",
+)
 
 
 class RequestManager:
@@ -20,7 +29,8 @@ class RequestManager:
     ``policy`` is ``"rarest_first"`` (default, as the reference's
     production policy) or ``"random"``. In endgame (every missing piece
     already requested) duplicate requests are allowed so one slow peer
-    can't stall completion.
+    can't stall completion. Each piece handed out again counts once in
+    ``p2p_piece_rerequests_total`` by its reason.
     """
 
     def __init__(
@@ -49,6 +59,9 @@ class RequestManager:
         # duplication collapse above), too high parks stragglers for tens
         # of seconds behind one slow peer.
         self._service_ewma: float | None = None
+        # Pieces whose every pending request expired: their next hand-out
+        # is a re-request.
+        self._expired: set[int] = set()
 
     # -- bookkeeping -------------------------------------------------------
 
@@ -67,6 +80,7 @@ class RequestManager:
                     del peers[peer]
             if not peers:
                 del self._requests[piece]
+                self._expired.add(piece)
 
     def mark_sent(self, piece: int, peer: PeerID, now: float | None = None) -> None:
         now = time.monotonic() if now is None else now
@@ -74,6 +88,7 @@ class RequestManager:
 
     def clear_piece(self, piece: int, now: float | None = None) -> None:
         peers = self._requests.pop(piece, None)
+        self._expired.discard(piece)
         if peers:
             now = time.monotonic() if now is None else now
             # NEWEST mark: the most recent request (often the rescue that
@@ -130,6 +145,7 @@ class RequestManager:
         fresh = [
             p for p in missing if p in peer_has and p not in self._requests
         ]
+        duplicate = None
         if not fresh:
             # Endgame: everything missing is in flight somewhere. With deep
             # pipelines that is the NORMAL mid-download state, so duplicate
@@ -146,11 +162,20 @@ class RequestManager:
                 and now - max(self._requests.get(p, {}).values(), default=0.0)
                 > stale_after
             ]
+            duplicate = (
+                "endgame" if all(p in self._requests for p in missing)
+                else "rescue"
+            )
         if self.policy == "rarest_first":
             fresh.sort(key=lambda p: (availability.get(p, 0), random.random()))
         else:
             random.shuffle(fresh)
         chosen = fresh[:budget]
         for p in chosen:
+            if duplicate is not None:
+                _RE_REQUESTS.inc(reason=duplicate)
+            elif p in self._expired:
+                self._expired.discard(p)
+                _RE_REQUESTS.inc(reason="expired")
             self.mark_sent(p, peer, now)
         return chosen

@@ -15,12 +15,13 @@ import logging
 import os
 import threading
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 from kraken_tpu_torch.core.digest import Digest
 from kraken_tpu_torch.core.hasher import PieceHasher, get_hasher
 from kraken_tpu_torch.core.metainfo import MetaInfo
 from kraken_tpu_torch.store import CAStore, PieceStatusMetadata
+from kraken_tpu_torch.utils import trace
 from kraken_tpu_torch.utils.metrics import REGISTRY
 
 _log = logging.getLogger("kraken.storage")
@@ -30,6 +31,25 @@ class PieceError(Exception):
     pass
 
 
+# Set by the dispatcher (a payload for a piece already held) and by
+# Torrent.write_piece (a copy verified, then found already set).
+PIECE_DUPLICATES = REGISTRY.counter(  # kt-lint: disable=metric-catalog  # the port's own counter (ROADMAP §C); docs/OPERATIONS.md is the reference's catalog, which the port does not edit
+    "p2p_piece_duplicates_total",
+    "Piece payloads dropped as duplicates, by when: before_verify (the "
+    "piece was already held) or after_verify (verified, then found set)",
+)
+
+
+class _Queued(NamedTuple):
+    """A piece waiting in the verify queue."""
+
+    data: bytes | memoryview
+    expected: bytes
+    fut: asyncio.Future
+    at: float  # time.perf_counter() at enqueue
+    span: Optional[trace.Span]  # the caller's span, if its trace is sampled
+
+
 class BatchedVerifier:
     """Verifies received pieces against their expected digests, batching
     concurrent arrivals into one ``PieceHasher.hash_batch`` dispatch.
@@ -37,6 +57,9 @@ class BatchedVerifier:
     Each ``verify`` parks on a future while a single flusher task drains
     the queue -- one kernel launch per drain instead of one per piece.
     With no ``hasher`` it takes the ``cuda`` hasher, which needs a card.
+    The ``verify`` plane bills each piece's wait in the queue (enqueue to
+    the flush) and for the pool (the flush to its hash thread's start);
+    the hasher bills the flush's own stages.
     """
 
     def __init__(
@@ -51,7 +74,7 @@ class BatchedVerifier:
         self.hasher = hasher or get_hasher("cuda")
         self._max_batch = max_batch
         self._max_delay = max_delay_seconds
-        self._queue: list[tuple[bytes, bytes, asyncio.Future]] = []
+        self._queue: list[_Queued] = []
         self._flusher: Optional[asyncio.Task] = None
         self._inflight: set[asyncio.Task] = set()  # strong refs to hash tasks
         # Waiter future -> the hash task whose thread reads its buffer.
@@ -72,7 +95,9 @@ class BatchedVerifier:
     async def verify(self, data: bytes | memoryview, expected: bytes) -> bool:
         loop = asyncio.get_running_loop()
         fut: asyncio.Future[bool] = loop.create_future()
-        self._queue.append((data, expected, fut))
+        sp = trace.current()
+        self._queue.append(_Queued(data, expected, fut, time.perf_counter(),
+                                   sp if sp is not None and sp.sampled else None))
         if self._flusher is None or self._flusher.done():
             self._flusher = asyncio.create_task(self._flush_soon())
         if len(self._queue) >= self._max_batch:
@@ -97,6 +122,11 @@ class BatchedVerifier:
         batch, self._queue = self._queue, []
         if not batch:
             return
+        now = time.perf_counter()
+        trace.bill("queue", sum(now - q.at for q in batch), len(batch), "verify")
+        for q in batch:
+            if q.span is not None:
+                trace.record_interval("hash_plane.verify.queue", q.span, q.at)
         REGISTRY.counter(
             "verify_pieces_total", "Pieces through batched verification"
         ).inc(len(batch))
@@ -109,50 +139,57 @@ class BatchedVerifier:
         # The hash runs off the event loop: a full batch is hundreds of MB
         # and a blocking device round-trip. Each flush resolves only its
         # own batch's futures, so concurrent flushes need no ordering.
-        t = asyncio.create_task(self._hash_off_loop(batch))
+        t = asyncio.create_task(self._hash_off_loop(batch, now))
         self._inflight.add(t)
         t.add_done_callback(self._inflight.discard)
 
-    async def _hash_off_loop(
-        self, batch: list[tuple[bytes, bytes, asyncio.Future]]
-    ) -> None:
+    async def _hash_off_loop(self, batch: list[_Queued], flushed: float) -> None:
         # Drop entries whose waiter was cancelled before touching their
         # buffers: the caller may already have released them.
-        batch = [(d, e, f) for d, e, f in batch if not f.done()]
+        batch = [q for q in batch if not q.fut.done()]
         if not batch:
             return
         me = asyncio.current_task()
-        for _d, _e, fut in batch:
-            self._reading[fut] = me
+        for q in batch:
+            self._reading[q.fut] = me
         try:
-            await self._hash_batch(batch)
+            await self._hash_batch(batch, flushed)
         finally:
-            for _d, _e, fut in batch:
-                self._reading.pop(fut, None)
+            for q in batch:
+                self._reading.pop(q.fut, None)
 
-    async def _hash_batch(
-        self, batch: list[tuple[bytes, bytes, asyncio.Future]]
-    ) -> None:
+    def _hash_in_thread(self, pieces: list, flushed: float | None = None,
+                        spans: tuple = ()):
+        """The hash thread's body: bill the pieces' wait for it (from the
+        flush at ``flushed``) and hash them in the ``verify`` plane."""
+        if flushed is not None:
+            trace.bill("pool", (time.perf_counter() - flushed) * len(pieces),
+                       len(pieces), "verify")
+            for sp in spans:
+                trace.record_interval("hash_plane.verify.pool", sp, flushed)
+        with trace.plane("verify"):
+            return self.hasher.hash_batch(pieces)
+
+    async def _hash_batch(self, batch: list[_Queued], flushed: float) -> None:
         try:
             digests = await asyncio.to_thread(
-                self.hasher.hash_batch, [d for d, _e, _f in batch]
+                self._hash_in_thread, [q.data for q in batch], flushed,
+                tuple(q.span for q in batch if q.span is not None),
             )
         except Exception:
             # One bad entry must not fail its batch-mates: retry per item,
             # failing only what individually fails.
-            for d, expected, fut in batch:
+            for d, expected, fut, *_ in batch:
                 if fut.done():
                     continue
                 try:
-                    got = await asyncio.to_thread(
-                        self.hasher.hash_batch, [d]
-                    )
+                    got = await asyncio.to_thread(self._hash_in_thread, [d])
                     fut.set_result(bytes(got[0]) == expected)
                 except Exception as e:
                     if not fut.done():
                         fut.set_exception(e)
             return
-        for (d, expected, fut), got in zip(batch, digests):
+        for (d, expected, fut, *_), got in zip(batch, digests):
             if not fut.done():
                 fut.set_result(bytes(got) == expected)
 
@@ -407,6 +444,7 @@ class Torrent:
         if self._status is None:
             # A second copy of the final piece can arrive after completion:
             # a benign duplicate, never a peer fault.
+            PIECE_DUPLICATES.inc(when="before_verify")
             return False
         if len(data) != self.metainfo.piece_length_of(i):
             raise PieceError(
@@ -418,6 +456,7 @@ class Torrent:
             raise PieceError(f"piece {i}: digest mismatch")
         self.verify_wall += time.perf_counter() - t0
         if self._status is None or self._status.has(i):
+            PIECE_DUPLICATES.inc(when="after_verify")
             return False  # duplicate arrival
         # The data write runs outside the lock: pieces occupy disjoint
         # offsets, so concurrent pwrites never conflict. Completion cannot
@@ -432,6 +471,7 @@ class Torrent:
             # Re-check under the lock: a concurrent writer of the same
             # final piece may have completed the torrent meanwhile.
             if self._status is None or self._status.has(i):
+                PIECE_DUPLICATES.inc(when="after_verify")
                 return False
             self._status.set(i)
             if self._status.complete():

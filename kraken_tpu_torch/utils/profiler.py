@@ -74,6 +74,7 @@ _PLANE_RULES: tuple[tuple[str, str], ...] = (
     ("sha256", "verify"),
     ("_hashlib", "verify"),
     ("storage.py:_hash_off_loop", "verify"),
+    ("storage.py:_hash_in_thread", "verify"),
     ("storage.py:verify", "verify"),
     ("wire.py:", "pump"),
     ("conn.py:", "pump"),

@@ -23,6 +23,11 @@ and :func:`format_tree` join several nodes' dumps into span trees (the
 ``trace`` subcommand). At import the module registers
 :func:`exemplar_trace_id` as the metric histograms' exemplar provider.
 
+The SHA-256 plane's stage boundaries (:func:`stage`, :func:`bill`,
+:class:`plane`) count seconds and intervals by path and stage, enter a
+``torch.profiler`` range while one records, and are spans on sampled
+traces.
+
 Overhead discipline: the shipped sample rate is LOW, span creation is a
 plain object + two clock reads, and the per-piece spans in the data plane
 are gated on the trace's sampled flag.
@@ -37,6 +42,7 @@ import json
 import logging
 import os
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -688,6 +694,124 @@ def critical_path(root: dict) -> set[str]:
 from kraken_tpu_torch.utils import metrics as _metrics  # noqa: E402
 
 _metrics.set_exemplar_provider(exemplar_trace_id)
+
+
+# -- hash-plane stage timers (the SHA-256 plane's own boundaries) -----------
+
+# The plane a stage is billed to: "verify" (BatchedVerifier's flushes),
+# "ingest" (the pipelined windows), "other" (any other hasher call). Set
+# by the caller, so the PieceHasher interface keeps its signature;
+# asyncio.to_thread carries it into the hash thread, a ThreadPoolExecutor
+# does not (its task sets it again).
+_plane: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "kraken_hash_plane", default="other"
+)
+
+_STAGE_SECONDS = _metrics.REGISTRY.counter(  # kt-lint: disable=metric-catalog  # the port's own counter (ROADMAP §C); docs/OPERATIONS.md is the reference's catalog, which the port does not edit
+    "hash_plane_seconds_total",
+    "Seconds in the SHA-256 plane by path (verify|ingest|other) and stage "
+    "(queue, pool, slot, stage, check, submit, readback)",
+)
+_STAGE_EVENTS = _metrics.REGISTRY.counter(  # kt-lint: disable=metric-catalog  # the port's own counter (ROADMAP §C); docs/OPERATIONS.md is the reference's catalog, which the port does not edit
+    "hash_plane_events_total",
+    "Intervals billed to hash_plane_seconds_total: pieces for queue and "
+    "pool, windows for slot, flush groups or windows for the others",
+)
+
+
+class plane:
+    """``with trace.plane("verify"):`` -- bill the stages timed inside
+    (in this thread and in ``asyncio.to_thread`` children) to ``path``."""
+
+    __slots__ = ("_path", "_token")
+
+    def __init__(self, path: str):
+        self._path = path
+
+    def __enter__(self) -> None:
+        self._token = _plane.set(self._path)
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        _plane.reset(self._token)
+        return False
+
+
+def record_interval(name: str, parent: Span, t0: float) -> None:
+    """A finished child span of ``parent`` that began at ``t0``
+    (``time.perf_counter``) and ends now: an interval whose start was
+    read in another context (a piece's wait in the verify queue)."""
+    sp = TRACER.start_span(name, parent=parent)
+    if sp is not None:
+        sp.start_ts -= sp._t0 - t0
+        sp._t0 = t0
+        TRACER.finish(sp)
+
+
+def bill(stage_: str, seconds: float, events: int = 1,
+         path: str | None = None) -> None:
+    """Add an interval its caller timed to the plane's counters."""
+    path = path or _plane.get()
+    _STAGE_SECONDS.inc(seconds, path=path, stage=stage_)
+    _STAGE_EVENTS.inc(events, path=path, stage=stage_)
+
+
+def _profiler_module():
+    """``torch.autograd.profiler`` while a torch profiler records anywhere
+    in the process, else None. Reads ``sys.modules``: this module never
+    imports torch (forked shard workers import it and must not)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
+
+
+class stage:
+    """``with trace.stage("submit"):`` -- one leaf boundary of the SHA-256
+    plane: two clock reads, billed to ``hash_plane_{seconds,events}_total``
+    under the current :class:`plane` (or ``path``). ``count=False`` adds
+    the seconds of a boundary's second part without a second event (the
+    launch after a bounds check that splits the submit).
+
+    While a torch profiler records, the interval is also a
+    ``record_function`` range ``kraken.<path>.<stage>``, a
+    ``user_annotation`` on the device trace's clock; with none, nothing
+    is entered. On a sampled trace it is also a child span
+    ``hash_plane.<path>.<stage>``. ``seconds`` holds the interval after
+    the block."""
+
+    __slots__ = ("_stage", "_path", "_count", "_range", "_span", "_t0",
+                 "seconds")
+
+    def __init__(self, _stage: str, path: str | None = None,
+                 count: bool = True):
+        self._stage = _stage
+        self._path = path
+        self._count = count
+        self._range = None
+        self._span = None
+        self.seconds = 0.0
+
+    def __enter__(self) -> "stage":
+        path = self._path = self._path or _plane.get()
+        prof = _profiler_module()
+        if prof is not None:
+            self._range = prof.record_function(f"kraken.{path}.{self._stage}")
+            self._range.__enter__()
+        cur = _current.get()
+        if cur is not None and cur.sampled:
+            self._span = span(f"hash_plane.{path}.{self._stage}")
+            self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.seconds = time.perf_counter() - self._t0
+        bill(self._stage, self.seconds, int(self._count), self._path)
+        if self._span is not None:
+            self._span.__exit__(exc_type, exc, tb)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        return False
 
 
 def format_tree(root: dict, crit: set[str] | None = None) -> list[str]:
